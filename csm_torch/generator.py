@@ -1,0 +1,267 @@
+"""End-to-end text-to-speech: prompt assembly in the (T, 33) frame format,
+autoregressive frame generation, Mimi decode to a 24 kHz waveform.
+
+The counterpart of the JAX package's ``generator.py`` on the random-weight
+path.  Branches that wait for later slices raise ``NotImplementedError``
+naming their ROADMAP.md item instead of being ignored: device meshes
+(A.11), quantized weights and the int8 KV cache (A.8), LoRA adapters
+(A.10), real checkpoints (A.13), streaming generation (A.9, A.14) and the
+8B flavor (A.8).  Watermarking (A.6) is not on this slice either: a
+``watermarker`` callable is applied when one is given, and none is by
+default.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
+from csm_torch.data import frames as fr
+from csm_torch.data.tokenizers import MimiAudioTokenizer, load_text_tokenizer
+from csm_torch.models.config import ModelArgs, csm_1b_args, csm_param_count
+from csm_torch.models.csm import fuse_csm_params
+from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length, generate_audio_tokens
+from csm_torch.utils.device import resolve_device
+from csm_torch.utils.params import cast_params, random_csm_params
+
+SAMPLE_RATE = 24_000
+FRAME_RATE = 12.5
+MS_PER_FRAME = 80.0
+
+# bf16 trees above this size need the quantized streaming loader (A.8)
+_STREAMING_LOAD_BYTES = 8 << 30
+
+
+def _waits(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+@dataclasses.dataclass
+class Segment:
+    """One conversational turn."""
+
+    speaker: int
+    text: str
+    audio: np.ndarray  # float32 mono at 24 kHz
+
+
+@dataclasses.dataclass
+class PackedContext:
+    """A conversation context Mimi-encoded and frame-packed once, accepted
+    wherever a list of context segments is."""
+
+    tokens: np.ndarray  # (T, K+1) int32
+    mask: np.ndarray  # (T, K+1) bool
+
+
+class Generator:
+    """Contextual speech generator.
+
+    Args:
+        params: CSM parameter tree (models/csm layout) on ``device``.
+        mimi: MimiAudioTokenizer (encode for context audio, decode for
+            output); tests may pass a fake with the same two methods.
+        text_tokenizer: ``.encode(str) -> list[int]``; defaults to
+            ``load_text_tokenizer()``.
+        watermarker: optional ``(audio, sr) -> (audio, sr)``.
+        device: where generation runs; ``"cuda"`` unless the caller asks
+            for the CPU.
+    """
+
+    def __init__(
+        self,
+        params: dict,
+        args: Optional[ModelArgs] = None,
+        mimi=None,
+        text_tokenizer=None,
+        watermarker=None,
+        compute_dtype=torch.bfloat16,
+        device="cuda",
+        mesh=None,
+        kv_dtype=None,
+    ):
+        if mesh is not None:
+            raise _waits("sharded inference over a device mesh", "A.11")
+        if kv_dtype is not None:
+            raise _waits("the int8 KV cache", "A.8")
+        self.device = resolve_device(device)
+        self.params = fuse_csm_params(params)
+        self.args = args or csm_1b_args()
+        self.mimi = mimi
+        self.text_tokenizer = text_tokenizer or load_text_tokenizer()
+        self.watermarker = watermarker
+        self.compute_dtype = compute_dtype
+        self.sample_rate = SAMPLE_RATE
+        self.max_seq_len = self.args.backbone.max_seq_len
+        self.last_stats: dict = {}
+
+    # ---- prompt assembly ----
+
+    def _segment_frames(self, seg: Segment):
+        ids = self.text_tokenizer.encode(f"[{seg.speaker}]{seg.text}")
+        if self.mimi is None:
+            raise ValueError("context audio requires a Mimi tokenizer")
+        codes = self.mimi.encode(np.asarray(seg.audio, np.float32))
+        return fr.segment_frames(self.args, ids, codes)
+
+    def precompute_context(self, segments: List[Segment]) -> PackedContext:
+        """Encode and pack a context once, for reuse across calls."""
+        return PackedContext(*fr.concat_frames([self._segment_frames(s) for s in segments]))
+
+    def _build_prompt(self, text: str, speaker: int, context):
+        if isinstance(context, PackedContext):
+            parts = [(context.tokens, context.mask)]
+        else:
+            parts = [self._segment_frames(s) for s in context]
+        parts.append(fr.text_frames(self.args, self.text_tokenizer.encode(f"[{speaker}]{text}")))
+        return fr.concat_frames(parts)
+
+    # ---- generation ----
+
+    def generate(
+        self,
+        text: str,
+        speaker: int = 0,
+        context: Optional[List[Segment]] = None,
+        max_audio_length_ms: float = 90_000,
+        temperature: float = 0.9,
+        topk: int = 50,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """One 24 kHz waveform for ``text``."""
+        return self.generate_batch(
+            [text], [speaker], [context or []], max_audio_length_ms=max_audio_length_ms,
+            temperature=temperature, topk=topk, seed=seed,
+        )[0]
+
+    def generate_streaming(self, *args, **kwargs):
+        raise _waits("streaming generation", "A.9 and A.14")
+
+    @torch.inference_mode()
+    def generate_batch(
+        self,
+        texts: List[str],
+        speakers: List[int],
+        contexts: Optional[List[list]] = None,
+        max_audio_length_ms: float = 90_000,
+        temperature: float = 0.9,
+        topk: int = 50,
+        seed: int = 0,
+    ) -> List[np.ndarray]:
+        """N utterances through one batched frame loop."""
+        t_start = time.perf_counter()
+        contexts = contexts or [[] for _ in texts]
+        max_frames = int(max_audio_length_ms / MS_PER_FRAME)
+        K = self.args.audio_num_codebooks
+
+        prompts = [self._build_prompt(t, s, c) for t, s, c in zip(texts, speakers, contexts)]
+        lens = np.array([p[0].shape[0] for p in prompts], np.int32)
+        limit = self.max_seq_len - max_frames
+        if int(lens.max()) >= limit:
+            # the prompt must leave room for the whole audio budget
+            raise ValueError(
+                f"prompt too long: {int(lens.max())} >= {limit} "
+                f"({self.max_seq_len} - {max_frames} audio frames)"
+            )
+        S_pad = bucket_length(
+            int(lens.max()), tuple(b for b in PROMPT_BUCKETS if b <= self.max_seq_len)
+        )
+        B = len(prompts)
+        tokens = np.zeros((B, S_pad, K + 1), np.int32)
+        mask = np.zeros((B, S_pad, K + 1), bool)
+        for b, (tk, mk) in enumerate(prompts):
+            tokens[b, : tk.shape[0]] = tk
+            mask[b, : mk.shape[0]] = mk
+
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        t_tok = time.perf_counter()
+        res = generate_audio_tokens(
+            self.params, self.args, tokens, mask, lens, max_frames=max_frames,
+            temperature=temperature, topk=topk, compute_dtype=self.compute_dtype,
+            generator=gen, device=self.device,
+        )
+        frames = res.frames.cpu().numpy()  # (B, max_frames, K)
+        nf = res.num_frames.cpu().numpy()
+        t_gen = time.perf_counter()
+
+        outs: List[np.ndarray] = []
+        for b in range(B):
+            n = int(nf[b])
+            if n == 0:
+                outs.append(np.zeros(0, np.float32))
+                continue
+            if self.mimi is None:
+                raise ValueError("decoding audio requires a Mimi tokenizer")
+            audio = np.asarray(self.mimi.decode(frames[b, :n].T))
+            audio = audio[: int(n / FRAME_RATE * self.sample_rate)]
+            if not np.all(np.isfinite(audio)):
+                bad = int(np.sum(~np.isfinite(audio)))
+                print(f"WARNING: repaired {bad} non-finite audio samples")
+                audio = np.nan_to_num(audio, nan=0.0, posinf=0.0, neginf=0.0)
+            if self.watermarker is not None:
+                audio, _ = self.watermarker(audio, self.sample_rate)
+            outs.append(np.asarray(audio, np.float32))
+
+        wall = time.perf_counter() - t_start
+        total_audio = sum(len(o) for o in outs) / self.sample_rate
+        self.last_stats = {
+            "wall_s": wall,
+            "tokenize_s": t_tok - t_start,
+            "prefill_s": res.prefill_s,
+            "generate_s": t_gen - t_tok,
+            "decode_s": time.perf_counter() - t_gen,
+            "audio_s": total_audio,
+            "prompt_bucket": S_pad,
+            "steps": res.steps,
+            "frames": int(nf.sum()),
+            "frames_per_s": float(nf.sum()) / max(t_gen - t_tok, 1e-9),
+            "rtf": total_audio / max(wall, 1e-9),
+        }
+        return outs
+
+
+def load_csm(
+    ckpt_path: Optional[str] = None,
+    mimi_path: Optional[str] = None,
+    watermarker=None,
+    compute_dtype=torch.bfloat16,
+    quantize="none",
+    kv_int8: bool = False,
+    args: Optional[ModelArgs] = None,
+    lora_path: Optional[str] = None,
+    device="cuda",
+    text_tokenizer=None,
+    seed: int = 0,
+) -> Generator:
+    """A CSM Generator on random weights made from ``seed`` (CSM-1B unless
+    ``args`` says otherwise) and a random Mimi codec made from ``seed + 1``.
+
+    Loading a checkpoint, quantization, the int8 KV cache, LoRA adapters and
+    models too large for a float tree raise ``NotImplementedError``."""
+    if ckpt_path is not None or mimi_path is not None:
+        raise _waits("loading real CSM or Mimi checkpoints", "A.13")
+    if quantize not in (False, None, "none"):
+        raise _waits(f"quantize={quantize!r}", "A.8")
+    if kv_int8:
+        raise _waits("the int8 KV cache", "A.8")
+    if lora_path is not None:
+        raise _waits("LoRA adapters", "A.10")
+    args = args or csm_1b_args()
+    if 2 * csm_param_count(args) > _STREAMING_LOAD_BYTES:
+        raise _waits("the quantized streaming loader of the 8B flavor", "A.8")
+    device = resolve_device(device)
+    params = cast_params(random_csm_params(args, seed, device=device), compute_dtype)
+    mimi_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    mimi = MimiAudioTokenizer(mimi_init(mimi_gen, CSM_MIMI_CONFIG, device=device))
+    return Generator(
+        params, args, mimi=mimi, text_tokenizer=text_tokenizer, watermarker=watermarker,
+        compute_dtype=compute_dtype, device=device,
+    )
+
+
+load_csm_1b = load_csm

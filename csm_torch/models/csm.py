@@ -1,0 +1,198 @@
+"""CSM dual-transformer model, PyTorch.
+
+A Llama-3.2-1B backbone over interleaved text+audio token frames predicts
+the semantic (codebook-0) Mimi token of each 80 ms frame; a Llama-3.2-100M
+decoder fills the other 31 acoustic codebooks, over a fresh 32-slot cache
+per frame.  Same parameter tree as the JAX package's ``models/csm.py``;
+the decoder loop is a Python loop of S=1 steps, and caches are written in
+place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from csm_torch.models.config import ModelArgs
+from csm_torch.models.llama import fuse_projections, transformer_apply, transformer_init
+from csm_torch.ops.attention import causal_mask_from_positions
+from csm_torch.ops.flash_attention import FLASH_MIN_SEQ
+from csm_torch.ops.kvcache import KVCache, init_kv_cache
+from csm_torch.ops.sampling import sample_topk
+
+# Position of unwritten / padding cache slots: larger than any real query
+# position, so the causal test kv_pos <= q_pos never selects them for a
+# real query.
+PAD_POS = 1 << 28
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b at the promoted dtype (bf16 @ f32 → f32, as in JAX)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def init_csm_params(
+    args: ModelArgs, generator: torch.Generator, dtype=torch.float32, device="cpu"
+) -> dict:
+    """Random CSM parameters (normal / sqrt(fan_in)), the tree of the JAX
+    package's ``init_csm_params``."""
+    bb, dec = args.backbone, args.decoder
+    V, K = args.audio_vocab_size, args.audio_num_codebooks
+
+    def init(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w / fan_in**0.5).to(dtype)
+
+    return {
+        "backbone": transformer_init(bb, generator, dtype, device),
+        "decoder": transformer_init(dec, generator, dtype, device),
+        "text_embeddings": init((args.text_vocab_size, bb.embed_dim), bb.embed_dim),
+        "audio_embeddings": init((V * K, bb.embed_dim), bb.embed_dim),
+        "projection": init((bb.embed_dim, dec.embed_dim), bb.embed_dim),
+        "codebook0_head": init((bb.embed_dim, V), bb.embed_dim),
+        "audio_head": init((K - 1, dec.embed_dim, V), dec.embed_dim),
+    }
+
+
+def fuse_csm_params(params: dict) -> dict:
+    """Fused qkv / gate-up projections for backbone and decoder
+    (idempotent)."""
+    out = dict(params)
+    for comp in ("backbone", "decoder"):
+        if "wqkv" not in params[comp]:
+            out[comp] = fuse_projections(params[comp])
+    return out
+
+
+def embed_audio(params: dict, args: ModelArgs, codebook, tokens: torch.Tensor) -> torch.Tensor:
+    """Audio tokens of one codebook → embeddings (codebook-offset rows)."""
+    return params["audio_embeddings"][tokens.long() + codebook * args.audio_vocab_size]
+
+
+def embed_tokens(params: dict, args: ModelArgs, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """(B, S, K+1) token frame → (B, S, K+1, E); columns 0..K-1 audio, K text."""
+    K = args.audio_num_codebooks
+    text_table, audio_table = params["text_embeddings"], params["audio_embeddings"]
+    if dtype is not None:
+        text_table, audio_table = text_table.to(dtype), audio_table.to(dtype)
+    tokens = tokens.long()
+    text = text_table[tokens[:, :, -1]][:, :, None, :]
+    offsets = args.audio_vocab_size * torch.arange(K, device=tokens.device)
+    audio = audio_table[tokens[:, :, :K] + offsets]
+    return torch.cat([audio, text], dim=-2)
+
+
+def masked_embed_sum(params, args, tokens, tokens_mask, dtype=None) -> torch.Tensor:
+    """Embed, mask and sum over the frame columns → (B, S, E)."""
+    embeds = embed_tokens(params, args, tokens, dtype=dtype)
+    return (embeds * tokens_mask[..., None].to(embeds.dtype)).sum(dim=2)
+
+
+class FrameState(NamedTuple):
+    """Decode-loop state: backbone KV cache (written in place), the number of
+    cache columns written, and the position held by each slot (PAD_POS for
+    unwritten / padding slots)."""
+
+    cache: KVCache
+    offset: int
+    kv_pos: torch.Tensor  # (B, max_seq) int32
+
+
+def init_frame_state(
+    args: ModelArgs, batch_size: int, dtype=torch.bfloat16, max_seq_len=None, device="cpu"
+) -> FrameState:
+    cache = init_kv_cache(args.backbone, batch_size, dtype, max_seq_len, device)
+    kv_pos = torch.full(
+        (batch_size, cache.max_seq_len), PAD_POS, dtype=torch.int32, device=device
+    )
+    return FrameState(cache, 0, kv_pos)
+
+
+def generate_frame(
+    params: dict,
+    args: ModelArgs,
+    generator: Optional[torch.Generator],
+    tokens: torch.Tensor,
+    tokens_mask: torch.Tensor,
+    input_pos: torch.Tensor,
+    state: FrameState,
+    temperature: float,
+    topk: int,
+    compute_dtype=torch.bfloat16,
+    last_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, FrameState]:
+    """Generate one 32-codebook audio frame.
+
+    Args:
+        tokens/tokens_mask: (B, S, K+1) input frame(s).
+        input_pos: (B, S) int32 absolute positions; padding rows carry PAD_POS.
+        state: backbone cache state; new K/V are written IN PLACE at
+            ``state.offset``.
+        last_idx: (B,) index of each row's last real prompt row (None → S-1).
+
+    Returns ((B, K) int32 codes, the advanced FrameState).
+    """
+    K = args.audio_num_codebooks
+    bb, dec = args.backbone, args.decoder
+    B, S, _ = tokens.shape
+    device = tokens.device
+    uniforms = torch.rand((K, B, 1), generator=generator, device=device)
+
+    # ---- backbone step ----
+    h = masked_embed_sum(params, args, tokens, tokens_mask).to(compute_dtype)
+    kv_pos = state.kv_pos
+    kv_pos[:, state.offset : state.offset + S] = input_pos.to(torch.int32)
+    if S >= FLASH_MIN_SEQ:  # the JAX package's cutoff, so both take the same paths
+        bb_mask, flash_pos = None, (input_pos.to(torch.int32).contiguous(), kv_pos)
+    else:
+        bb_mask, flash_pos = causal_mask_from_positions(input_pos, kv_pos), None
+    h, cache = transformer_apply(
+        params["backbone"], bb, h, input_pos, bb_mask, state.cache, state.offset,
+        flash_pos=flash_pos,
+    )
+    new_state = FrameState(cache, state.offset + S, kv_pos)
+    last_h = h[:, -1, :] if last_idx is None else h[torch.arange(B, device=device), last_idx.long()]
+
+    # ---- codebook 0 from the backbone head ----
+    c0_logits = _matmul(last_h, params["codebook0_head"])
+    c0 = sample_topk(c0_logits, topk, temperature, uniforms=uniforms[0])
+    c0_embed = embed_audio(params, args, 0, c0).to(compute_dtype)
+
+    # ---- decoder: fresh K-slot cache per frame ----
+    dec_cache = init_kv_cache(dec, B, compute_dtype, max_seq_len=K, device=device)
+    dec_kv_pos = torch.arange(K, dtype=torch.int32, device=device)
+    curr_h = torch.stack([last_h, c0_embed], dim=1)  # (B, 2, E_b)
+    proj_h = _matmul(curr_h, params["projection"]).to(compute_dtype)
+    pos01 = torch.arange(2, dtype=torch.int32, device=device).expand(B, 2)
+    dec_h, _ = transformer_apply(
+        params["decoder"], dec, proj_h, pos01, causal_mask_from_positions(pos01, dec_kv_pos),
+        dec_cache, 0,
+    )
+    c1_logits = _matmul(dec_h[:, -1, :], params["audio_head"][0]).float()
+    samples = [c0, sample_topk(c1_logits, topk, temperature, uniforms=uniforms[1])]
+
+    # ---- codebooks 2..K-1: single-position decoder steps ----
+    for i in range(2, K):
+        emb = embed_audio(params, args, i - 1, samples[-1])[:, None, :]
+        proj = _matmul(emb, params["projection"]).to(compute_dtype)
+        pos = torch.full((B, 1), i, dtype=torch.int32, device=device)
+        dh, _ = transformer_apply(
+            params["decoder"], dec, proj, pos, causal_mask_from_positions(pos, dec_kv_pos),
+            dec_cache, i,
+        )
+        logits = _matmul(dh[:, -1, :], params["audio_head"][i - 1]).float()
+        samples.append(sample_topk(logits, topk, temperature, uniforms=uniforms[i]))
+    return torch.stack(samples, dim=1).to(torch.int32), new_state
+
+
+def backbone_forward(params, args, tokens, tokens_mask, positions=None, compute_dtype=torch.bfloat16):
+    """Full-sequence (uncached) backbone pass → (B, S, E_b) hidden states."""
+    B, S, _ = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h = masked_embed_sum(params, args, tokens, tokens_mask).to(compute_dtype)
+    mask = causal_mask_from_positions(positions, positions[0])
+    h, _ = transformer_apply(params["backbone"], args.backbone, h, positions, mask)
+    return h

@@ -1,0 +1,161 @@
+"""Llama-3.2-style transformer (backbone and audio decoder), PyTorch.
+
+Same parameter layout as the JAX package: a dict of layer-stacked tensors
+(leading axis = num_layers), weights stored (in, out) so every projection is
+``x @ W``, q/k rows in half-split RoPE order, and the fused inference layout
+(``wqkv``, ``w13``) from ``fuse_projections``.  The layer loop is a Python
+loop; the KV cache is written in place (ops/kvcache.py).
+
+Attention routing (the same paths the JAX package takes on its TPU):
+  * cached S=1 steps → ``decode_gqa_attention`` (the decode kernel);
+  * ``flash_pos`` given (cached prefill of S >= FLASH_MIN_SEQ) → the flash
+    kernel over the whole cache, masked from positions;
+  * everything else (short prefill, the decoder's S=2 call) → plain
+    ``gqa_attention`` under the materialized mask.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from csm_torch.models.config import TransformerConfig
+from csm_torch.ops.attention import gqa_attention
+from csm_torch.ops.decode_attention import decode_gqa_attention
+from csm_torch.ops.flash_attention import flash_gqa_attention
+from csm_torch.ops.kvcache import KVCache, update_layer
+from csm_torch.ops.norms import rms_norm
+from csm_torch.ops.rope import apply_rope, rope_at_positions
+
+
+def transformer_init(
+    cfg: TransformerConfig, generator: torch.Generator, dtype=torch.float32, device="cpu"
+) -> dict:
+    """Random layer-stacked parameters (normal / sqrt(fan_in), unit norms),
+    the shapes of the JAX package's ``transformer_init``."""
+    E, I, L = cfg.embed_dim, cfg.intermediate_dim, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def init(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w / fan_in**0.5).to(dtype)
+
+    return {
+        "wq": init((L, E, qd), E),
+        "wk": init((L, E, kvd), E),
+        "wv": init((L, E, kvd), E),
+        "wo": init((L, qd, E), qd),
+        "w1": init((L, E, I), E),
+        "w3": init((L, E, I), E),
+        "w2": init((L, I, E), I),
+        "sa_norm": torch.ones((L, E), dtype=dtype, device=device),
+        "mlp_norm": torch.ones((L, E), dtype=dtype, device=device),
+        "norm": torch.ones((E,), dtype=dtype, device=device),
+    }
+
+
+def fuse_projections(tp: dict) -> dict:
+    """wq/wk/wv → wqkv and w1/w3 → w13 (inference layout: the same bytes
+    through fewer, larger matmuls)."""
+    out = {k: v for k, v in tp.items() if k not in ("wq", "wk", "wv", "w1", "w3")}
+    out["wqkv"] = torch.cat([tp["wq"], tp["wk"], tp["wv"]], dim=-1)
+    out["w13"] = torch.cat([tp["w1"], tp["w3"]], dim=-1)
+    return out
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # weights cast to the activation dtype: params may be stored f32 while
+    # the compute dtype is bf16
+    return x @ w.to(x.dtype)
+
+
+def _layer_forward(
+    h: torch.Tensor,
+    lp: dict,
+    cfg: TransformerConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    kv_layer: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    cache_offset: Optional[int],
+    flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One transformer block; writes this layer's K/V into ``kv_layer`` in
+    place when given."""
+    B, S, E = h.shape
+    D = cfg.head_dim
+    qd, kvd = cfg.num_heads * D, cfg.num_kv_heads * D
+
+    x = rms_norm(h, lp["sa_norm"], cfg.norm_eps)
+    if "wqkv" in lp:
+        qkv = _proj(x, lp["wqkv"])
+        q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
+    else:
+        q, k, v = _proj(x, lp["wq"]), _proj(x, lp["wk"]), _proj(x, lp["wv"])
+    q = apply_rope(q.reshape(B, S, cfg.num_heads, D), cos, sin)
+    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, D), cos, sin)
+    v = v.reshape(B, S, cfg.num_kv_heads, D)
+
+    if kv_layer is None:
+        attn = gqa_attention(q, k, v, mask)
+    else:
+        k, v = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
+        if flash_pos is not None:
+            attn = flash_gqa_attention(q, k, v, *flash_pos)
+        elif S == 1:
+            attn = decode_gqa_attention(q, k, v, mask)
+        else:
+            attn = gqa_attention(q, k, v, mask)
+
+    h = h + _proj(attn.reshape(B, S, qd), lp["wo"])
+
+    x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    if "w13" in lp:
+        I = cfg.intermediate_dim
+        g13 = _proj(x, lp["w13"])
+        gate, up = F.silu(g13[..., :I]), g13[..., I:]
+    else:
+        gate, up = F.silu(_proj(x, lp["w1"])), _proj(x, lp["w3"])
+    return h + _proj(gate * up, lp["w2"])
+
+
+def transformer_apply(
+    params: dict,
+    cfg: TransformerConfig,
+    h: torch.Tensor,
+    positions: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    cache: Optional[KVCache] = None,
+    cache_offset: Optional[int] = None,
+    flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the transformer.
+
+    Args:
+        h: (B, S, E) hidden states.
+        positions: (B, S) or (S,) int positions for RoPE.
+        mask: (B, S, T) bool attention mask (T = cache length when cached);
+            None when ``flash_pos`` is given.
+        cache: optional KVCache; new K/V are written IN PLACE at
+            ``cache_offset`` (a Python int) and attention runs over the
+            whole cache.
+        flash_pos: optional (q_pos (B, S) int32, kv_pos (T,) | (B, T) int32):
+            attend over the cache through the flash kernel, masked from
+            positions (cached calls only).
+
+    Returns (normed h (B, S, E), the cache or None).
+    """
+    if flash_pos is not None and cache is None:
+        raise ValueError("flash_pos routes cached prefill only; pass a cache")
+    cos, sin = rope_at_positions(cfg, positions)
+    fixed = ("wo", "w2", "sa_norm", "mlp_norm")
+    names = (("wqkv",) if "wqkv" in params else ("wq", "wk", "wv")) + (
+        ("w13",) if "w13" in params else ("w1", "w3")
+    ) + fixed
+    for layer in range(cfg.num_layers):
+        lp = {n: params[n][layer] for n in names}
+        kv_layer = None if cache is None else (cache.k[layer], cache.v[layer])
+        h = _layer_forward(h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos)
+    return rms_norm(h, params["norm"], cfg.norm_eps), cache

@@ -1,0 +1,95 @@
+"""The port's CUDA kernels held against their plain versions on a card.
+
+Every test here needs a CUDA card and skips without one; this file imports
+neither JAX nor the JAX package, so it runs on a machine with only
+PyTorch (``python -m pytest --noconftest tests/test_torch_cuda.py``, as the
+README says).  Float32 agrees to 1e-5 (one rounding of float32 sums); bf16
+to one bf16 ulp (rtol 2**-7, atol 1e-4 for outputs near zero), since kernel
+and plain version both accumulate in float32 and round the output once.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from csm_torch.ops import decode_attention as tdec
+from csm_torch.ops import flash_attention as tfa
+
+PAD = 1 << 28
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _decode_inputs(B, Hq, Hkv, D, T, seed=0):
+    """q/k/v plus a per-row causal mask; the last row is fully masked."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    pos = rng.integers(T // 2, T, B)
+    mask = np.arange(T)[None, None, :] <= pos[:, None, None]
+    mask[-1] = False
+    return q, k, v, mask
+
+
+def _flash_inputs(S, T, lens, Hq=4, Hkv=1, D=64, seed=0):
+    """Main-path prefill layout: row b holds lens[b] real tokens then
+    PAD_POS rows; the cache's first S slots carry those positions and the
+    rest are unwritten (PAD_POS).  A row with lens = 0 has q_pos = -1
+    everywhere: it sees no key at all."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    col = np.arange(S)
+    q_pos = np.stack([np.where(col < n, col, PAD if n else -1) for n in lens]).astype(np.int32)
+    kv_pos = np.full((B, T), PAD, np.int32)
+    kv_pos[:, :S] = np.where(q_pos >= 0, q_pos, col)
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2**-7)])
+@pytest.mark.parametrize("B,Hq,Hkv,D,T", [(1, 32, 8, 64, 89), (2, 32, 8, 64, 1189),
+                                          (2, 8, 2, 128, 32), (2, 4, 2, 16, 70)])
+def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol, B, Hq, Hkv, D, T):
+    q, k, v, mask = (torch.from_numpy(x).to(cuda) for x in _decode_inputs(B, Hq, Hkv, D, T))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    n = tdec.launches
+    got = tdec.decode_gqa_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert tdec.launches == n + 1
+    want = tdec.decode_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2**-7)])
+@pytest.mark.parametrize("S,lens,Hq,Hkv,D", [(256, (200, 0), 32, 8, 64), (300, (131,), 4, 2, 16),
+                                             (64, (64,), 8, 2, 128)])
+def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, S, lens, Hq, Hkv, D):
+    q, k, v, q_pos, kv_pos = (torch.from_numpy(x).to(cuda)
+                              for x in _flash_inputs(S, S + 25, lens, Hq, Hkv, D))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    n = tfa.launches
+    o, lse = tfa.flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert tfa.launches == n + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+
+
+def test_wrappers_refuse_a_card_tensor_they_cannot_take(cuda):
+    """On a card there is no plain fallback: what the kernel does not take
+    raises."""
+    q, k, v, mask = (torch.from_numpy(x).to(cuda) for x in _decode_inputs(1, 4, 2, 16, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.decode_gqa_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask)
+    with pytest.raises(ValueError, match="on"):
+        tdec.decode_gqa_attention(q, k.cpu(), v, mask)

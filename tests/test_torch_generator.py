@@ -1,0 +1,172 @@
+"""``Generator`` end to end, the port against the JAX package, and the
+port's package rules.
+
+Tiny CSM in float32 on the CPU, the real Mimi codec widths with 2
+transformer layers, both packages on the same weights.  The codes each
+Generator hands to its codec are recorded: at topk=1 they are equal, and
+the waveforms agree to 1e-5 absolute (float32 codec, measured ~1e-6).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from csm_tpu import generator as jgen
+from csm_tpu.codec import mimi as jmimi
+from csm_tpu.codec.transformer import MimiTransformerConfig as JTransformerConfig
+from csm_tpu.data.tokenizers import ByteTokenizer as JByteTokenizer
+from csm_tpu.data.tokenizers import MimiAudioTokenizer as JMimiTokenizer
+from csm_tpu.models import csm as jcsm
+from csm_tpu.models.config import tiny_test_args
+from csm_torch import generator as tgen
+from csm_torch.codec import mimi as tmimi
+from csm_torch.codec.transformer import MimiTransformerConfig as TTransformerConfig
+from csm_torch.data.tokenizers import ByteTokenizer, MimiAudioTokenizer
+from csm_torch.models import config as tconfig
+from csm_torch.utils.params import params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Recording:
+    """Wraps a codec and keeps every code array it is asked to decode."""
+
+    def __init__(self, inner):
+        self.inner, self.decoded = inner, []
+
+    def encode(self, audio):
+        return self.inner.encode(audio)
+
+    def decode(self, codes):
+        self.decoded.append(np.array(codes))
+        return self.inner.decode(codes)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX Generator, port Generator) on the same weights and codec."""
+    # the audio vocab holds every Mimi code, as CSM's 2051 does
+    jargs = tiny_test_args(audio_vocab_size=2051)
+    K = jargs.audio_num_codebooks
+    cfg_j = jmimi.MimiConfig(transformer=JTransformerConfig(num_layers=2))
+    cfg_t = tmimi.MimiConfig(transformer=TTransformerConfig(num_layers=2))
+    jparams = jcsm.init_csm_params(jax.random.key(0), jargs)
+    mj = jax.jit(lambda: jmimi.mimi_init(jax.random.key(1), cfg_j))()
+    gj = jgen.Generator(jparams, jargs, mimi=Recording(JMimiTokenizer(mj, cfg_j, K)),
+                        text_tokenizer=JByteTokenizer(), compute_dtype=jnp.float32)
+    mt = params_from_jax(jax.tree.map(np.asarray, mj))
+    gt = tgen.Generator(params_from_jax(jax.tree.map(np.asarray, jparams)),
+                        tconfig.tiny_test_args(audio_vocab_size=2051),
+                        mimi=Recording(MimiAudioTokenizer(mt, cfg_t, K)),
+                        text_tokenizer=ByteTokenizer(), compute_dtype=torch.float32,
+                        device="cpu")
+    return gj, gt
+
+
+def _check_same(gj, gt, outs_j, outs_t):
+    assert len(gj.mimi.decoded) == len(gt.mimi.decoded) > 0
+    for a, b in zip(gj.mimi.decoded, gt.mimi.decoded):
+        np.testing.assert_array_equal(b, a)
+    for a, b in zip(outs_j, outs_t):
+        assert b.shape == a.shape and b.dtype == np.float32
+        np.testing.assert_allclose(b, a, atol=1e-5, rtol=1e-4)
+    for key in ("frames", "audio_s"):
+        assert gt.last_stats[key] == gj.last_stats[key]
+
+
+def test_generate_with_context(pair):
+    """A context segment goes through Mimi encode, the reply through the
+    frame loop and Mimi decode."""
+    gj, gt = pair
+    audio = np.random.default_rng(0).standard_normal(6000).astype(np.float32) * 0.1
+    ctx_j = [jgen.Segment(0, "hey", audio)]
+    ctx_t = [tgen.Segment(0, "hey", audio)]
+    kw = dict(speaker=1, max_audio_length_ms=480, temperature=1.0, topk=1)
+    a_j = gj.generate("hello there", context=ctx_j, **kw)
+    a_t = gt.generate("hello there", context=ctx_t, **kw)
+    _check_same(gj, gt, [a_j], [a_t])
+    assert gt.last_stats["steps"] == 5 and gt.last_stats["prompt_bucket"] == 64
+    packed = gt.precompute_context(ctx_t)
+    gt.mimi.decoded.clear()
+    np.testing.assert_array_equal(gt.generate("hello there", context=packed, **kw), a_t)
+
+
+def test_generate_batch(pair):
+    gj, gt = pair
+    gj.mimi.decoded.clear()
+    gt.mimi.decoded.clear()
+    texts, speakers = ["short", "a rather longer line of text"], [0, 1]
+    kw = dict(max_audio_length_ms=320, temperature=1.0, topk=1)
+    _check_same(gj, gt, gj.generate_batch(texts, speakers, **kw),
+                gt.generate_batch(texts, speakers, **kw))
+
+
+def test_prompt_length_contract(pair):
+    _, gt = pair
+    with pytest.raises(ValueError, match="prompt too long"):
+        gt.generate("x" * 200, max_audio_length_ms=400)
+
+
+def test_unported_branches_raise():
+    args = tconfig.tiny_test_args()
+    for kw, item in ((dict(quantize="int8"), "A.8"), (dict(kv_int8=True), "A.8"),
+                     (dict(lora_path="x"), "A.10"), (dict(ckpt_path="x.pt"), "A.13")):
+        with pytest.raises(NotImplementedError, match=item):
+            tgen.load_csm(args=args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        tgen.load_csm(args=tconfig.csm_8b_args(), device="cpu")
+    g = tgen.load_csm(args=args, device="cpu", text_tokenizer=ByteTokenizer())
+    with pytest.raises(NotImplementedError, match="A.14"):
+        g.generate_streaming("hi")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        tgen.Generator(g.params, args, device="cpu", mesh=object())
+
+
+ISOLATION = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["csm_tpu"] = None
+import torch
+import csm_torch
+names = [m.name for m in pkgutil.walk_packages(csm_torch.__path__, "csm_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not torch.cuda.is_available()
+from csm_torch import load_csm
+from csm_torch.data.tokenizers import ByteTokenizer
+from csm_torch.models.config import tiny_test_args
+from csm_torch.models.generation import generate_audio_tokens
+args = tiny_test_args()
+for call in (lambda: load_csm(args=args, text_tokenizer=ByteTokenizer()),
+             lambda: generate_audio_tokens({}, args, None, None, None, 1)):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise SystemExit("an entry point ran without a card")
+g = load_csm(args=args, text_tokenizer=ByteTokenizer(), device="cpu")
+try:
+    csm_torch.Generator(g.params, args, text_tokenizer=ByteTokenizer())
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise SystemExit("Generator ran without a card")
+print("OK", len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of csm_torch imports with JAX and csm_tpu blocked, and
+    no entry point runs on the CPU unless it is asked to."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", ISOLATION], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[0] == "OK" and int(res.stdout.split()[1]) >= 20
