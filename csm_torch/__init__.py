@@ -2,8 +2,9 @@
 
 Text-to-speech with the CSM dual transformer (Llama-3.2-1B backbone + 100M
 audio decoder over interleaved text and Mimi RVQ tokens) and the Mimi codec,
-with the attention kernels written by hand in CUDA C++ for sm_90a
-(``csm_torch/csrc``).  It imports neither JAX nor the JAX package; the tests
+with the attention kernels and the grouped-int4 matmul written by hand in CUDA
+C++ for sm_90a (``csm_torch/csrc``); int8 and int4 weights and an int8 KV cache
+for the quantized modes.  It imports neither JAX nor the JAX package; the tests
 hold it against that package on the CPU.
 """
 

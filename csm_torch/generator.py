@@ -2,13 +2,12 @@
 autoregressive frame generation, Mimi decode to a 24 kHz waveform.
 
 The counterpart of the JAX package's ``generator.py`` on the random-weight
-path.  Branches that wait for later slices raise ``NotImplementedError``
-naming their ROADMAP.md item instead of being ignored: device meshes
-(A.11), quantized weights and the int8 KV cache (A.8), LoRA adapters
-(A.10), real checkpoints (A.13), streaming generation (A.9, A.14) and the
-8B flavor (A.8).  Watermarking (A.6) is not on this slice either: a
-``watermarker`` callable is applied when one is given, and none is by
-default.
+path, quantized modes and the 8B flavor included.  Branches that wait for
+later slices raise ``NotImplementedError`` naming their ROADMAP.md item
+instead of being ignored: device meshes (A.11), LoRA adapters (A.10), real
+checkpoints (A.13) and streaming generation (A.9, A.14).  Watermarking
+(A.6) is not on this slice either: a ``watermarker`` callable is applied
+when one is given, and none is by default.
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ from csm_torch.data.tokenizers import MimiAudioTokenizer, load_text_tokenizer
 from csm_torch.models.config import ModelArgs, csm_1b_args, csm_param_count
 from csm_torch.models.csm import fuse_csm_params
 from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length, generate_audio_tokens
+from csm_torch.models.llama import fuse_weights
+from csm_torch.utils import quantize as qz
 from csm_torch.utils.device import resolve_device
 from csm_torch.utils.params import cast_params, random_csm_params
 
@@ -33,7 +34,8 @@ SAMPLE_RATE = 24_000
 FRAME_RATE = 12.5
 MS_PER_FRAME = 80.0
 
-# bf16 trees above this size need the quantized streaming loader (A.8)
+# bf16 trees above this size are made quantized, a few layers at a time, and
+# never exist in float on the device (the 8B flavor)
 _STREAMING_LOAD_BYTES = 8 << 30
 
 
@@ -71,6 +73,8 @@ class Generator:
         watermarker: optional ``(audio, sr) -> (audio, sr)``.
         device: where generation runs; ``"cuda"`` unless the caller asks
             for the CPU.
+        kv_dtype: backbone KV-cache dtype; ``torch.int8`` quantizes K/V as
+            they are written (ops/kvcache.py), None keeps ``compute_dtype``.
     """
 
     def __init__(
@@ -87,8 +91,7 @@ class Generator:
     ):
         if mesh is not None:
             raise _waits("sharded inference over a device mesh", "A.11")
-        if kv_dtype is not None:
-            raise _waits("the int8 KV cache", "A.8")
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.params = fuse_csm_params(params)
         self.args = args or csm_1b_args()
@@ -183,7 +186,7 @@ class Generator:
         res = generate_audio_tokens(
             self.params, self.args, tokens, mask, lens, max_frames=max_frames,
             temperature=temperature, topk=topk, compute_dtype=self.compute_dtype,
-            generator=gen, device=self.device,
+            generator=gen, device=self.device, kv_dtype=self.kv_dtype,
         )
         frames = res.frames.cpu().numpy()  # (B, max_frames, K)
         nf = res.num_frames.cpu().numpy()
@@ -239,29 +242,93 @@ def load_csm(
     seed: int = 0,
 ) -> Generator:
     """A CSM Generator on random weights made from ``seed`` (CSM-1B unless
-    ``args`` says otherwise) and a random Mimi codec made from ``seed + 1``.
+    ``args`` says otherwise, e.g. ``csm_8b_args()``) and a random Mimi codec
+    made from ``seed + 1``.
 
-    Loading a checkpoint, quantization, the int8 KV cache, LoRA adapters and
-    models too large for a float tree raise ``NotImplementedError``."""
+    ``quantize`` — weight-only quantization of the transformer stacks, after
+    the cast to ``compute_dtype`` (so scales are bf16): False/None/"none",
+    True/"int8" (per out-channel), "int8-decoder" (the acoustic decoder
+    only: the backbone and codebook-0 head stay float), or "int4" (grouped
+    4-bit through the fused-dequant kernel, ops/int4_matmul.py).
+    ``kv_int8`` — int8 backbone KV cache, quantized as it is written.
+
+    Models whose bf16 tree exceeds 8 GiB (the 8B flavor) are made quantized
+    a few layers at a time and need quantize="int8" or "int4".  Loading a
+    checkpoint and LoRA adapters raise ``NotImplementedError``."""
     if ckpt_path is not None or mimi_path is not None:
         raise _waits("loading real CSM or Mimi checkpoints", "A.13")
-    if quantize not in (False, None, "none"):
-        raise _waits(f"quantize={quantize!r}", "A.8")
-    if kv_int8:
-        raise _waits("the int8 KV cache", "A.8")
+    args = args or csm_1b_args()
+    qmode = {False: "none", True: "int8", None: "none"}.get(quantize, quantize)
+    if qmode not in ("none", "int8", "int8-decoder", "int4"):
+        raise ValueError(f"quantize must be none|int8|int8-decoder|int4, got {quantize!r}")
+    if 2 * csm_param_count(args) > _STREAMING_LOAD_BYTES:
+        return _load_csm_streaming(
+            watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device,
+            text_tokenizer, seed,
+        )
     if lora_path is not None:
         raise _waits("LoRA adapters", "A.10")
-    args = args or csm_1b_args()
-    if 2 * csm_param_count(args) > _STREAMING_LOAD_BYTES:
-        raise _waits("the quantized streaming loader of the 8B flavor", "A.8")
     device = resolve_device(device)
     params = cast_params(random_csm_params(args, seed, device=device), compute_dtype)
+    if qmode == "int8":
+        params = qz.quantize_csm_params(params)
+    elif qmode == "int8-decoder":
+        # the backbone and codebook-0 head stay float: for the same token
+        # history the c0 logits equal the unquantized model's
+        params = qz.quantize_csm_params(params, components=("decoder",))
+    elif qmode == "int4":
+        params = qz.quantize_csm_params_int4(params)
+    return _generator(params, args, watermarker, compute_dtype, kv_int8, device,
+                      text_tokenizer, seed)
+
+
+def _generator(params, args, watermarker, compute_dtype, kv_int8, device, text_tokenizer, seed):
     mimi_gen = torch.Generator(device=device).manual_seed(seed + 1)
     mimi = MimiAudioTokenizer(mimi_init(mimi_gen, CSM_MIMI_CONFIG, device=device))
     return Generator(
         params, args, mimi=mimi, text_tokenizer=text_tokenizer, watermarker=watermarker,
         compute_dtype=compute_dtype, device=device,
+        kv_dtype=torch.int8 if kv_int8 else None,
     )
+
+
+def _load_csm_streaming(
+    watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device, text_tokenizer, seed
+) -> Generator:
+    """Random weights made and quantized a few layers at a time on the
+    device, so only the quantized tree ever exists there (the 8B flavor's
+    bf16 tree is over 16 GB)."""
+    if qmode not in ("int8", "int4"):
+        raise ValueError(
+            f"this model's bf16 tree is over {_STREAMING_LOAD_BYTES >> 30} GiB: pass "
+            f"quantize='int8' or 'int4', got {qmode!r}"
+        )
+    if lora_path is not None:
+        raise ValueError(
+            "lora_path merges adapters into a float base, which this "
+            "flavor cannot materialize"
+        )
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = _fuse_owned(qz.init_csm_params_quantized(gen, args, qmode, device=device))
+    return _generator(params, args, watermarker, compute_dtype, kv_int8, device,
+                      text_tokenizer, seed)
+
+
+def _fuse_owned(params: dict) -> dict:
+    """qkv / gate-up fusion that frees each source projection as soon as its
+    fused leaf exists, so the transient is one fused leaf, not a second
+    tree.  The caller hands over its only reference; ``fuse_csm_params``
+    later sees ``wqkv`` and leaves the tree as it is."""
+    for comp in ("backbone", "decoder"):
+        tp = params[comp]
+        if "wqkv" in tp:
+            continue
+        for names, fused_name in ((("wq", "wk", "wv"), "wqkv"), (("w1", "w3"), "w13")):
+            ws = [tp.pop(n) for n in names]
+            tp[fused_name] = fuse_weights(ws)
+            del ws  # the last reference: the separate projections are freed
+    return params
 
 
 load_csm_1b = load_csm

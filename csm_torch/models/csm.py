@@ -57,8 +57,8 @@ def init_csm_params(
 
 
 def fuse_csm_params(params: dict) -> dict:
-    """Fused qkv / gate-up projections for backbone and decoder
-    (idempotent)."""
+    """Fused qkv / gate-up projections for backbone and decoder, float or
+    quantized (idempotent)."""
     out = dict(params)
     for comp in ("backbone", "decoder"):
         if "wqkv" not in params[comp]:
@@ -101,9 +101,13 @@ class FrameState(NamedTuple):
 
 
 def init_frame_state(
-    args: ModelArgs, batch_size: int, dtype=torch.bfloat16, max_seq_len=None, device="cpu"
+    args: ModelArgs, batch_size: int, dtype=torch.bfloat16, max_seq_len=None, device="cpu",
+    kv_dtype=None,
 ) -> FrameState:
-    cache = init_kv_cache(args.backbone, batch_size, dtype, max_seq_len, device)
+    """``kv_dtype`` overrides the backbone cache's dtype (``torch.int8``: a
+    quantized cache, ops/kvcache.py); the decoder's per-frame cache stays
+    float."""
+    cache = init_kv_cache(args.backbone, batch_size, kv_dtype or dtype, max_seq_len, device)
     kv_pos = torch.full(
         (batch_size, cache.max_seq_len), PAD_POS, dtype=torch.int32, device=device
     )

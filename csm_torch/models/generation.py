@@ -50,6 +50,7 @@ def generate_audio_tokens(
     compute_dtype=torch.bfloat16,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    kv_dtype=None,
 ) -> GenerationResult:
     """Generate up to ``max_frames`` frames after the prompt.
 
@@ -60,6 +61,8 @@ def generate_audio_tokens(
         prompt_len: (B,) real prompt lengths.
         (the three prompt arrays may be tensors or numpy arrays)
         generator: torch.Generator on ``device`` for the sampling draws.
+        kv_dtype: backbone cache dtype (``torch.int8``: quantized KV cache;
+            None: ``compute_dtype``).
     """
     device = resolve_device(device)
     if params["text_embeddings"].device.type != device.type:
@@ -71,7 +74,7 @@ def generate_audio_tokens(
     B, S_pad, _ = prompt_tokens.shape
     t0 = time.perf_counter()
 
-    state = csm.init_frame_state(args, B, compute_dtype, S_pad + max_frames, device)
+    state = csm.init_frame_state(args, B, compute_dtype, S_pad + max_frames, device, kv_dtype)
     col = torch.arange(S_pad, dtype=torch.int32, device=device)
     input_pos = torch.where(
         col[None, :] < prompt_len[:, None], col[None, :], torch.full_like(col, csm.PAD_POS)

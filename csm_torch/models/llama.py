@@ -6,12 +6,18 @@ Same parameter layout as the JAX package: a dict of layer-stacked tensors
 (``wqkv``, ``w13``) from ``fuse_projections``.  The layer loop is a Python
 loop; the KV cache is written in place (ops/kvcache.py).
 
+A projection is a float tensor, an int8 dict ``{"w8", "scale"}`` or a
+grouped-int4 dict ``{"w4p", "scale4"}`` (utils/quantize.py); int4 goes
+through ``int4_matmul`` (the fused-dequant kernel at M <= 64).
+
 Attention routing (the same paths the JAX package takes on its TPU):
-  * cached S=1 steps → ``decode_gqa_attention`` (the decode kernel);
+  * cached S=1 steps over a float cache → ``decode_gqa_attention`` (the
+    decode kernel);
   * ``flash_pos`` given (cached prefill of S >= FLASH_MIN_SEQ) → the flash
     kernel over the whole cache, masked from positions;
-  * everything else (short prefill, the decoder's S=2 call) → plain
-    ``gqa_attention`` under the materialized mask.
+  * everything else (short prefill, the decoder's S=2 call, S=1 steps over
+    an int8 cache) → plain ``gqa_attention`` under the materialized mask.
+An int8 (QuantKV) cache is dequantized for the flash and plain routes.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from csm_torch.models.config import TransformerConfig
 from csm_torch.ops.attention import gqa_attention
 from csm_torch.ops.decode_attention import decode_gqa_attention
 from csm_torch.ops.flash_attention import flash_gqa_attention
-from csm_torch.ops.kvcache import KVCache, update_layer
+from csm_torch.ops.int4_matmul import int4_matmul
+from csm_torch.ops.kvcache import KVCache, QuantKV, dequantize_kv, layer_half, update_layer
 from csm_torch.ops.norms import rms_norm
 from csm_torch.ops.rope import apply_rope, rope_at_positions
 
@@ -56,19 +63,39 @@ def transformer_init(
     }
 
 
+def fuse_weights(ws: list):
+    """Concatenate projections along the out axis; quantized dicts field by
+    field (int8 and int4 pack and scale along axes the concat leaves
+    alone)."""
+    if isinstance(ws[0], dict):
+        return {k: torch.cat([w[k] for w in ws], dim=-1) for k in ws[0]}
+    return torch.cat(ws, dim=-1)
+
+
 def fuse_projections(tp: dict) -> dict:
     """wq/wk/wv → wqkv and w1/w3 → w13 (inference layout: the same bytes
     through fewer, larger matmuls)."""
     out = {k: v for k, v in tp.items() if k not in ("wq", "wk", "wv", "w1", "w3")}
-    out["wqkv"] = torch.cat([tp["wq"], tp["wk"], tp["wv"]], dim=-1)
-    out["w13"] = torch.cat([tp["w1"], tp["w3"]], dim=-1)
+    out["wqkv"] = fuse_weights([tp["wq"], tp["wk"], tp["wv"]])
+    out["w13"] = fuse_weights([tp["w1"], tp["w3"]])
     return out
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
+    if isinstance(w, dict) and "w4p" in w:  # grouped int4: fused-dequant kernel
+        return int4_matmul(x, w)
+    if isinstance(w, dict):  # int8 weight-only, per-out-channel scales
+        return (x @ w["w8"].to(x.dtype)) * w["scale"].to(x.dtype)
     # weights cast to the activation dtype: params may be stored f32 while
     # the compute dtype is bf16
     return x @ w.to(x.dtype)
+
+
+def _layer(w, layer: int):
+    """One layer of a layer-stacked leaf (tensor or quantized dict)."""
+    if isinstance(w, dict):
+        return {k: v[layer] for k, v in w.items()}
+    return w[layer]
 
 
 def _layer_forward(
@@ -101,10 +128,11 @@ def _layer_forward(
     if kv_layer is None:
         attn = gqa_attention(q, k, v, mask)
     else:
-        k, v = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
+        k_cache, v_cache = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
+        k, v = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
         if flash_pos is not None:
             attn = flash_gqa_attention(q, k, v, *flash_pos)
-        elif S == 1:
+        elif S == 1 and not isinstance(k_cache, QuantKV):
             attn = decode_gqa_attention(q, k, v, mask)
         else:
             attn = gqa_attention(q, k, v, mask)
@@ -155,7 +183,7 @@ def transformer_apply(
         ("w13",) if "w13" in params else ("w1", "w3")
     ) + fixed
     for layer in range(cfg.num_layers):
-        lp = {n: params[n][layer] for n in names}
-        kv_layer = None if cache is None else (cache.k[layer], cache.v[layer])
+        lp = {n: _layer(params[n], layer) for n in names}
+        kv_layer = None if cache is None else (layer_half(cache.k, layer), layer_half(cache.v, layer))
         h = _layer_forward(h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos)
     return rms_norm(h, params["norm"], cfg.norm_eps), cache

@@ -1,28 +1,66 @@
-"""Static-shape float KV caches for incremental decoding.
+"""Static-shape KV caches for incremental decoding, float or int8.
 
 Layout (num_layers, batch, max_seq, num_kv_heads, head_dim), as in the JAX
 package.  Unlike the functional JAX cache, the port writes new keys and
 values IN PLACE: ``update_layer`` mutates the cache tensors it is given and
-returns them.  The int8 ``QuantKV`` cache waits for quantized inference
-(ROADMAP.md A.8).
+returns them.
+
+int8 (``QuantKV``): keys and values are quantized when they are written,
+with one symmetric float32 scale per (batch, position, kv head) row over
+head_dim, and dequantized where attention reads them.  The cache never
+holds float K/V.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
 from csm_torch.models.config import TransformerConfig
 
 
+class QuantKV(NamedTuple):
+    """int8 half of a KV cache (keys OR values)."""
+
+    q: torch.Tensor  # int8, the float cache's shape (L?, B, S, Hkv, D)
+    s: torch.Tensor  # float32 per-row scale (L?, B, S, Hkv, 1), absmax / 127
+
+
+KVHalf = Union[torch.Tensor, QuantKV]
+
+
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (L, B, S, Hkv, D)
-    v: torch.Tensor
+    k: KVHalf  # (L, B, S, Hkv, D) tensor, or QuantKV of the same shape
+    v: KVHalf
 
     @property
     def max_seq_len(self) -> int:
-        return self.k.shape[2]
+        leaf = self.k.q if isinstance(self.k, QuantKV) else self.k
+        return leaf.shape[2]
+
+
+def layer_half(c: KVHalf, layer: int) -> KVHalf:
+    """One layer of a layer-stacked cache half (a view: writes land in the
+    cache)."""
+    if isinstance(c, QuantKV):
+        return QuantKV(c.q[layer], c.s[layer])
+    return c[layer]
+
+
+def quantize_kv_rows(x: torch.Tensor) -> QuantKV:
+    """Symmetric int8 per (..., row) over the last (head_dim) axis."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1, keepdim=True)
+    s = (m / 127.0).clamp_min(1e-8)
+    return QuantKV(torch.round(xf / s).to(torch.int8), s)
+
+
+def dequantize_kv(c: KVHalf, dtype) -> torch.Tensor:
+    """QuantKV → dense at ``dtype``; a float tensor passes through."""
+    if isinstance(c, QuantKV):
+        return (c.q.float() * c.s).to(dtype)
+    return c
 
 
 def init_kv_cache(
@@ -33,13 +71,18 @@ def init_kv_cache(
     device="cpu",
 ) -> KVCache:
     """All-zero cache; ``max_seq_len`` overrides the config length (the
-    decoder's cache holds ``audio_num_codebooks`` slots)."""
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV caches wait for quantized inference (ROADMAP.md A.8)"
-        )
+    decoder's cache holds ``audio_num_codebooks`` slots).  ``torch.int8``
+    makes a quantized cache (QuantKV halves: int8 codes, float32 scales)."""
     seq = max_seq_len if max_seq_len is not None else cfg.max_seq_len
     shape = (cfg.num_layers, batch_size, seq, cfg.num_kv_heads, cfg.head_dim)
+    if dtype == torch.int8:
+        def half():
+            return QuantKV(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            )
+
+        return KVCache(half(), half())
     return KVCache(
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
@@ -47,15 +90,23 @@ def init_kv_cache(
 
 
 def update_layer(
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache: KVHalf,
+    v_cache: KVHalf,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
     offset: int,
 ):
     """Write (B, S, Hkv, D) keys/values into one layer's (B, Smax, Hkv, D)
-    cache at column ``offset``, in place; returns the two cache tensors."""
+    cache at column ``offset``, in place; returns the two cache halves.  A
+    QuantKV cache quantizes the new rows here."""
     S = k_new.shape[1]
-    k_cache[:, offset : offset + S] = k_new.to(k_cache.dtype)
-    v_cache[:, offset : offset + S] = v_new.to(v_cache.dtype)
+    cols = slice(offset, offset + S)
+    if isinstance(k_cache, QuantKV):
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            qn = quantize_kv_rows(new)
+            cache.q[:, cols] = qn.q
+            cache.s[:, cols] = qn.s
+        return k_cache, v_cache
+    k_cache[:, cols] = k_new.to(k_cache.dtype)
+    v_cache[:, cols] = v_new.to(v_cache.dtype)
     return k_cache, v_cache

@@ -6,6 +6,8 @@ PyTorch (``python -m pytest --noconftest tests/test_torch_cuda.py``, as the
 README says).  Float32 agrees to 1e-5 (one rounding of float32 sums); bf16
 to one bf16 ulp (rtol 2**-7, atol 1e-4 for outputs near zero), since kernel
 and plain version both accumulate in float32 and round the output once.
+The int4 matmul's atol scales with its output: 2**-8 of the plain output's
+RMS in bf16, 1e-5 of it in float32.
 """
 
 import numpy as np
@@ -14,6 +16,8 @@ import torch
 
 from csm_torch.ops import decode_attention as tdec
 from csm_torch.ops import flash_attention as tfa
+from csm_torch.ops import int4_matmul as tint4
+from csm_torch.utils.quantize import quantize_weight_int4
 
 PAD = 1 << 28
 
@@ -93,3 +97,59 @@ def test_wrappers_refuse_a_card_tensor_they_cannot_take(cuda):
         tdec.decode_gqa_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask)
     with pytest.raises(ValueError, match="on"):
         tdec.decode_gqa_attention(q, k.cpu(), v, mask)
+
+
+def _int4_inputs(M, K, N, gs, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32) / K**0.5)
+    q = quantize_weight_int4(w.to(dev), gs)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev, dtype)
+    return x, q
+
+
+@pytest.mark.parametrize("dtype,rel_atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                                 (torch.bfloat16, 2**-8, 2**-7)])
+@pytest.mark.parametrize("M,K,N,gs", [(1, 2048, 3072, 128), (2, 2048, 16384, 128),
+                                      (64, 8192, 2048, 128), (17, 1024, 640, 64),
+                                      (3, 96, 200, 32), (5, 512, 1000, 256), (1, 64, 24, 2)])
+def test_int4_kernel_matches_plain(cuda, dtype, rel_atol, rtol, M, K, N, gs):
+    """Main-path shapes, rows handled four to a thread (M=17, 64), ragged
+    and unaligned N (200, 1000, 24: the byte path) and group sizes 2-256."""
+    x, q = _int4_inputs(M, K, N, gs, cuda, dtype)
+    n = tint4.launches
+    got = tint4.fused_int4_matmul(x, q)
+    torch.cuda.synchronize()
+    assert tint4.launches == n + 1 and got.dtype == dtype and got.shape == (M, N)
+    want = tint4.int4_matmul_plain(x, q)
+    rms = want.float().pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=rel_atol * rms, rtol=rtol)
+
+
+def test_int4_routes_on_rows(cuda):
+    """int4_matmul sends M <= 64 rows to the kernel and more rows to
+    dequant + matmul; a layer slice of a stacked weight goes in as it is."""
+    x, q = _int4_inputs(65, 256, 128, 64, cuda, torch.bfloat16)
+    stacked = {k: torch.stack([v, v]) for k, v in q.items()}
+    layer = {k: v[1] for k, v in stacked.items()}
+    n, d = tint4.launches, tint4.dequant_calls
+    tint4.int4_matmul(x[:64].reshape(2, 32, 256), layer)
+    assert (tint4.launches, tint4.dequant_calls) == (n + 1, d)
+    tint4.int4_matmul(x, layer)
+    assert (tint4.launches, tint4.dequant_calls) == (n + 1, d + 1)
+
+
+def test_int4_kernel_refuses_what_it_cannot_take(cuda):
+    x, q = _int4_inputs(2, 512, 256, 128, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="M <= 64"):
+        tint4.fused_int4_matmul(torch.cat([x] * 33), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tint4.fused_int4_matmul(x.t().contiguous().t(), q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tint4.fused_int4_matmul(x.half(), q)
+    with pytest.raises(ValueError, match="scale4"):
+        tint4.fused_int4_matmul(x, dict(q, scale4=q["scale4"].float()))
+    with pytest.raises(ValueError, match="group size"):
+        x1, q1 = _int4_inputs(1, 512, 256, 512, cuda, torch.bfloat16)
+        tint4.fused_int4_matmul(x1, q1)
+    with pytest.raises(ValueError, match="on"):
+        tint4.fused_int4_matmul(x, dict(q, w4p=q["w4p"].cpu()))

@@ -114,12 +114,15 @@ def test_prompt_length_contract(pair):
 
 
 def test_unported_branches_raise():
+    """Branches of later slices raise and name their ROADMAP item; the
+    quantized modes and the 8B flavor's loader are ported (their tests are
+    in tests/test_torch_quantize.py)."""
     args = tconfig.tiny_test_args()
-    for kw, item in ((dict(quantize="int8"), "A.8"), (dict(kv_int8=True), "A.8"),
-                     (dict(lora_path="x"), "A.10"), (dict(ckpt_path="x.pt"), "A.13")):
+    for kw, item in ((dict(lora_path="x"), "A.10"), (dict(ckpt_path="x.pt"), "A.13"),
+                     (dict(ckpt_path="x.pt", quantize="int4"), "A.13")):
         with pytest.raises(NotImplementedError, match=item):
             tgen.load_csm(args=args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="quantize='int8' or 'int4'"):
         tgen.load_csm(args=tconfig.csm_8b_args(), device="cpu")
     g = tgen.load_csm(args=args, device="cpu", text_tokenizer=ByteTokenizer())
     with pytest.raises(NotImplementedError, match="A.14"):
@@ -152,6 +155,13 @@ for call in (lambda: load_csm(args=args, text_tokenizer=ByteTokenizer()),
     else:
         raise SystemExit("an entry point ran without a card")
 g = load_csm(args=args, text_tokenizer=ByteTokenizer(), device="cpu")
+from csm_torch.ops.int4_matmul import int4_matmul
+from csm_torch.utils.quantize import quantize_weight, quantize_weight_int4
+w = torch.randn(64, 32)
+y = int4_matmul(torch.randn(3, 64), quantize_weight_int4(w, 32))
+assert y.shape == (3, 32) and quantize_weight(w)["w8"].dtype == torch.int8
+g4 = load_csm(args=args, text_tokenizer=ByteTokenizer(), device="cpu", quantize="int4", kv_int8=True)
+assert "w4p" in g4.params["backbone"]["w13"]
 try:
     csm_torch.Generator(g.params, args, text_tokenizer=ByteTokenizer())
 except RuntimeError as e:

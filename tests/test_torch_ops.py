@@ -122,8 +122,11 @@ def test_kvcache_writes_in_place(tiny):
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     assert kt.data_ptr() == c_t.k[1].data_ptr()  # the port's cache is written in place
     np.testing.assert_array_equal(c_t.k[1].numpy(), np.asarray(kj))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tkv.init_kv_cache(cfg, 1, torch.int8)
+    # torch.int8 makes the quantized cache (held against the JAX package in
+    # tests/test_torch_quantize.py)
+    c8 = tkv.init_kv_cache(cfg, 1, torch.int8)
+    assert isinstance(c8.k, tkv.QuantKV) and c8.k.q.dtype == torch.int8
+    assert c8.max_seq_len == cfg.max_seq_len
 
 
 def test_sample_topk_greedy():
