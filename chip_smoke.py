@@ -10,8 +10,9 @@ is wrong:
   2. the kernels build from csm_torch/csrc (one nvcc per source, in
      parallel) into build/kernels/;
   3. each kernel is held against its plain PyTorch version in bf16 at the
-     shapes of the main path, and timed beside that plain version, one
-     PyTorch library call computing the same function, and its bound;
+     shapes of the main path (the flash forward at the prefill's and at the
+     training's), and timed beside that plain version, one PyTorch library
+     call computing the same function, and its bound;
   4. the main path runs at CSM-1B width on random weights: Generator.generate
      (prompt bucket 64), generate (bucket 256: prefill through the flash
      kernel) and generate_batch of two prompts, with the kernels' launch
@@ -21,7 +22,21 @@ is wrong:
      short runs of int8, int8-decoder and the int8 KV cache;
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
-     codes equal, audio close.
+     codes equal, audio close;
+  6. training at CSM-1B width (random weights, float32 master weights, bf16
+     compute, remat, batch 2 in the 512 bucket from synthetic audio through
+     Mimi): six steps through the trainer's own step call and one validate,
+     with the flash kernels' launches held to 32 forward and 16 of each
+     backward kernel per step (16 forward per eval step), finite losses that
+     fall on the repeated batch, ms per step, trained frames/s, peak memory
+     and one profiled step;
+  7. ``CSMTrainer.train`` at tiny width on the card (epochs, validation,
+     checkpoints, resume from ``latest``) and the ``csm-torch-train`` CLI
+     (``python -m csm_torch.cli.train --tiny-test``) on two synthetic
+     recordings;
+  8. one train step of a tiny float32 model at T=256 (through the backward
+     kernels) on the card and on the CPU from the same weights, batch and
+     frame scores: loss and gradients agree.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
@@ -30,6 +45,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,6 +67,22 @@ BF16_FLOPS = 989e12
 # T=2048), so a kernel that drops one 64-key tile (~5e-3) fails this.
 BF16_ATOL, BF16_RTOL = 1e-4, 2**-7
 LSE_ATOL = 1e-3  # float32 log-sum-exp of the same bf16 scores
+# bf16 backward: dq sums ds·k over up to T keys, dk/dv over the group's G·S
+# rows; kernel and plain version accumulate in float32 in other orders and
+# round once to bf16, so an element may differ by one bf16 ulp (rtol 2**-7);
+# gradients near zero get an atol of 2**-8 of the gradient's RMS.  A kernel
+# that drops one 64-key (or 64-row) tile moves its gradient by a sizeable
+# share of that RMS, far above the atol.
+BWD_REL_ATOL = 2**-8
+# Training: the learning rate of the CSM-1B steps (the reference's default
+# is 1e-5; 1e-4 moves random weights enough in 5 steps for the loss on a
+# repeated batch to fall clearly), and the card-vs-CPU check of a tiny
+# float32 step: loss to 1e-5 relative, every gradient entry to 1e-5 of the
+# gradients' global norm (float32 sums in other orders, TF32 off).
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 6
+REF_LOSS_RTOL = 1e-5
+REF_GRAD_SHARE = 1e-5
 
 
 def log(msg: str = "") -> None:
@@ -163,6 +195,128 @@ def sdpa_flash(q, k, v, q_pos, kv_pos):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True)
 
 
+def bwd_case(B, S, T, Hq, Hkv, D, gen, dev, kv_rows=1, with_lse=False):
+    """bf16 backward inputs: the queries are the last S of T positions; with
+    kv_rows = 2 each row's (B, T) kv_pos marks 7·(b+1) slots dead (PAD_POS),
+    never slot 0, so every row sees a key.  out and lse come from the
+    forward kernel, held here against the plain forward (the training path
+    runs it at these shapes, with a broadcast (T,) kv_pos), delta from them
+    and dO (minus an LSE cotangent).  Returns the backward's arguments and
+    the forward's max |kernel - plain| of out."""
+    import torch
+
+    from csm_torch.models.csm import PAD_POS
+    from csm_torch.ops import flash_attention as fa
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, g = r(B, S, Hq, D), r(B, T, Hkv, D), r(B, T, Hkv, D), r(B, S, Hq, D)
+    q_pos = torch.arange(T - S, T, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+    kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+    if kv_rows == 2:
+        kv_pos = kv_pos.expand(B, T).contiguous()
+        for b in range(B):
+            dead = 1 + torch.randperm(T - 1, generator=gen, device=dev)[: 7 * (b + 1)]
+            kv_pos[b, dead] = PAD_POS
+    out, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    name = f"flash fwd B={B} S={S} T={T} kv_pos {tuple(kv_pos.shape)}"
+    fwd_err = check_close(f"{name} O", out, out_p, BF16_ATOL, BF16_RTOL)
+    check_close(f"{name} L", lse, lse_p, LSE_ATOL, 0.0)
+    del out_p, lse_p
+    g_lse = torch.randn(B, Hq, S, generator=gen, device=dev) if with_lse else None
+    return (q, k, v, q_pos, kv_pos, g, lse, fa.bwd_delta(out, g, g_lse)), fwd_err
+
+
+def bwd_bounds(q, k, q_pos, kv_pos):
+    """(dq bound, dk/dv bound), each (ms, by): bytes of one read of its
+    inputs (Q, K, V, dO, L, Dr, positions) and one write of its outputs;
+    2·D flops per visible (query head, key) pair for each of its products:
+    S, dP and dQ for the dq kernel, S, dP, dV and dK for the dk/dv kernel."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kv = kv_pos if kv_pos.dim() == 2 else kv_pos[None].expand(B, T)
+    visible = int((kv[:, None, :] <= q_pos[:, :, None]).sum())
+    q_bytes, kv_bytes = 2 * B * S * Hq * D, 2 * B * T * Hkv * D
+    rows = 4 * 2 * B * Hq * S + 4 * (q_pos.numel() + kv_pos.numel())
+    dq = bound_ms(3 * q_bytes + 2 * kv_bytes + rows, 3 * 2.0 * D * Hq * visible)
+    dkv = bound_ms(2 * q_bytes + 4 * kv_bytes + rows, 4 * 2.0 * D * Hq * visible)
+    return dq, dkv
+
+
+def sdpa_bwd(q, k, v, g):
+    """SDPA's backward (causal, GQA) on the same inputs: dq, dk and dv in one
+    call, the yardstick of both backward kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = g.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+
+BWD_MAIN_SHAPE = dict(B=2, S=512, T=512, Hq=32, Hkv=8, D=64)
+
+
+def bwd_rows(gen, dev, flush):
+    """Both backward kernels against their plain versions in bf16: the
+    training shape, a ragged one, S < T with a (B, T) kv_pos, and an LSE
+    cotangent; then timed at S = T = 512 and 2048, with the forward kernel
+    that feeds them (checked in ``bwd_case``) timed at the same shapes."""
+    import torch
+
+    from csm_torch.ops import flash_attention as fa
+
+    rows = []
+    checks = [(BWD_MAIN_SHAPE, 1, False), (dict(B=2, S=300, T=300, Hq=32, Hkv=8, D=64), 1, False),
+              (dict(B=2, S=200, T=300, Hq=32, Hkv=8, D=64), 2, False), (BWD_MAIN_SHAPE, 1, True),
+              (dict(B=2, S=2048, T=2048, Hq=32, Hkv=8, D=64), 1, False)]
+    for shape, kv_rows, with_lse in checks:
+        args, fwd_err = bwd_case(**shape, gen=gen, dev=dev, kv_rows=kv_rows, with_lse=with_lse)
+        q, k, v, q_pos, kv_pos, g, lse, delta = args
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        want_dq = fa.flash_bwd_dq_plain(*args)
+        want_dk, want_dv = fa.flash_bwd_dkv_plain(*args)
+        name = f"flash bwd {shape} kv_pos {'(B, T)' if kv_rows == 2 else '(T,)'} g_lse {with_lse}"
+        errs = {}
+        for what, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+            rms = want.float().pow(2).mean().sqrt().item()
+            if not rms > 0:  # an all-zero gradient would pass any tolerance
+                raise AssertionError(f"{name} {what}: the plain gradient is zero")
+            errs[what] = check_close(f"{name} {what}", got, want, BWD_REL_ATOL * rms, BF16_RTOL)
+        log(f"{name}: max |kernel - plain| forward O {fwd_err:.2e}, dq {errs['dq']:.2e} "
+            f"dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
+        if kv_rows != 1 or with_lse or shape["S"] not in (512, 2048):
+            continue
+        (dq_b, dq_by), (dkv_b, dkv_by) = bwd_bounds(q, k, q_pos, kv_pos)
+        kv2 = kv_pos[None].expand(q.shape[0], -1)
+        f_ms, f_by = flash_bound(q, k, q_pos, kv2)
+        rows.append(dict(kernel="flash_attention_fwd", shape=shape, max_abs_err=fwd_err,
+                         ms=timed_ms(lambda: fa.flash_attention_fwd(q, k, v, q_pos, kv_pos), flush),
+                         plain_ms=timed_ms(lambda: fa.flash_attention_plain(q, k, v, q_pos, kv_pos),
+                                           flush),
+                         library_ms=timed_ms(sdpa_flash(q, k, v, q_pos, kv2), flush),
+                         bound_ms=f_ms, bound_by=f_by))
+        lib = timed_ms(sdpa_bwd(q, k, v, g), flush)
+        rows.append(dict(kernel="flash_attention_bwd_dq", shape=shape, max_abs_err=errs["dq"],
+                         ms=timed_ms(lambda: fa.flash_attention_bwd_dq(*args), flush),
+                         plain_ms=timed_ms(lambda: fa.flash_bwd_dq_plain(*args), flush),
+                         library_ms=lib, bound_ms=dq_b, bound_by=dq_by))
+        rows.append(dict(kernel="flash_attention_bwd_dkv", shape=shape,
+                         max_abs_err=max(errs["dk"], errs["dv"]),
+                         ms=timed_ms(lambda: fa.flash_attention_bwd_dkv(*args), flush),
+                         plain_ms=timed_ms(lambda: fa.flash_bwd_dkv_plain(*args), flush),
+                         library_ms=lib, bound_ms=dkv_b, bound_by=dkv_by))
+        del args, q, k, v, g, lse, delta, dq, dk, dv, want_dq, want_dk, want_dv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(dev, flush, details):
     """Hold each kernel against its plain version; time both at the main
     path's shapes.  Returns the per-kernel records (launches filled later)."""
@@ -203,7 +357,7 @@ def phase_kernels(dev, flush, details):
     # flash forward: prefill buckets 256 and 512, T = S + 25 frames
     for B, S in ((1, 256), (2, 256), (1, 512), (2, 512)):
         q, k, v, q_pos, kv_pos = flash_case(B, S, S + 25, 32, 8, 64, gen, dev)
-        o, lse = fa.flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos)
+        o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
         torch.cuda.synchronize()
         o_p, lse_p = fa.flash_attention_plain(q, k, v, q_pos, kv_pos)
         err = check_close(f"flash O B={B} S={S}", o, o_p, BF16_ATOL, BF16_RTOL)
@@ -214,11 +368,12 @@ def phase_kernels(dev, flush, details):
         b_ms, b_by = flash_bound(q, k, q_pos, kv_pos)
         rows.append(dict(kernel="flash_attention_fwd", shape=dict(B=B, S=S, T=S + 25, Hq=32, Hkv=8, D=64),
                          max_abs_err=err,
-                         ms=timed_ms(lambda: fa.flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos), flush),
+                         ms=timed_ms(lambda: fa.flash_attention_fwd(q, k, v, q_pos, kv_pos), flush),
                          plain_ms=timed_ms(lambda: fa.flash_attention_plain(q, k, v, q_pos, kv_pos), flush),
                          library_ms=timed_ms(sdpa_flash(q, k, v, q_pos, kv_pos), flush),
                          bound_ms=b_ms, bound_by=b_by))
     rows += int4_rows(gen, dev, flush, details)
+    rows += bwd_rows(gen, dev, flush)
     details["kernel_rows"] = rows
     log(f"{'kernel':<20} {'shape':<58} {'ms':>8} {'plain':>8} {'library':>8} {'bound':>8} err")
     for r in rows:
@@ -241,6 +396,10 @@ def phase_kernels(dev, flush, details):
                dict(B=1, S=256, T=281, Hq=32, Hkv=8, D=64)),
         record("int4_matmul", "csm_torch/csrc/int4_matmul.cu",
                "csm_tpu/ops/int4_matmul.py:57", INT4_MAIN_SHAPE),
+        record("flash_attention_bwd_dq", "csm_torch/csrc/flash_attention_bwd.cu",
+               "csm_tpu/ops/flash_attention.py:291", BWD_MAIN_SHAPE),
+        record("flash_attention_bwd_dkv", "csm_torch/csrc/flash_attention_bwd.cu",
+               "csm_tpu/ops/flash_attention.py:347", BWD_MAIN_SHAPE),
     ]
 
 
@@ -445,7 +604,8 @@ def reset_counts():
     from csm_torch.ops import flash_attention as fa
     from csm_torch.ops import int4_matmul as i4
 
-    dec.launches = fa.launches = i4.launches = i4.dequant_calls = 0
+    dec.launches = fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    i4.launches = i4.dequant_calls = 0
 
 
 def read_counts():
@@ -454,6 +614,7 @@ def read_counts():
     from csm_torch.ops import int4_matmul as i4
 
     return {"decode_attention": dec.launches, "flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches, "flash_attention_bwd_dkv": fa.dkv_launches,
             "int4_matmul": i4.launches, "int4_dequant_route": i4.dequant_calls}
 
 
@@ -466,8 +627,8 @@ def drive(name, gen, calls, args, details, needs, kv_int8=False):
 
     quant = gen.params["backbone"]["w13"]
     int4 = isinstance(quant, dict) and "w4p" in quant
-    want = dict.fromkeys(("decode_attention", "flash_attention_fwd", "int4_matmul",
-                          "int4_dequant_route"), 0)
+    want = dict.fromkeys(("decode_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv", "int4_matmul", "int4_dequant_route"), 0)
     results = []
     reset_counts()  # the window opens
     for sub, call, B in calls:
@@ -637,6 +798,293 @@ def phase_reference(details):
             f"audio max |card - cpu| = {err:.2e}, int4 kernel launches on the card {n_int4}")
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def synthetic_examples(n, seconds, seed):
+    """``n`` TrainingExamples of synthetic speech-band audio made with numpy
+    from ``seed`` (tones plus noise) and short texts."""
+    import numpy as np
+
+    from csm_torch.data.processor import TrainingExample
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 24_000)) / 24_000
+    out = []
+    for i in range(n):
+        audio = 0.3 * np.sin(2 * np.pi * (180 + 40 * i) * t) + 0.05 * rng.standard_normal(t.size)
+        out.append(TrainingExample(f"Synthetic training utterance number {i}.",
+                                   audio.astype(np.float32), i % 2))
+    return out
+
+
+def expected_train_launches(L: int, steps: int = 1, eval_steps: int = 0) -> dict:
+    """Flash launches of remat training steps over an L-layer backbone at
+    T >= 256: the forward once per layer and once more in the recompute,
+    each backward kernel once per layer; an eval step, the forward once."""
+    return {"flash_attention_fwd": 2 * L * steps + L * eval_steps,
+            "flash_attention_bwd_dq": L * steps, "flash_attention_bwd_dkv": L * steps}
+
+
+def check_launches(name, got, want):
+    zero = {k: 0 for k in got}
+    if got != {**zero, **want}:
+        raise AssertionError(f"{name}: launches {got}, the path needs {want}")
+
+
+def profile_step(trainer, generator, batch, details):
+    """Kernel time of one training step by name, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._run_step(generator, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    details["train_1b_profile"] = {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms else "not measured",
+        "top_kernels": [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top],
+    }
+    log(f"train_1b_profile: one step {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
+        f"({len(kernels)} kinds)")
+    for name, count, ms in details["train_1b_profile"]["top_kernels"]:
+        log(f"  {ms:9.3f} ms {count:6d}x {name}")
+
+
+def phase_training(details, dev):
+    """CSM-1B training on the card: six steps on a repeated batch in the
+    512 bucket through the trainer's own step call, one validate, a profiled
+    step.  Returns the backward kernels' launches over the six steps (the
+    forward kernel's row keeps the generation path's count)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from csm_torch import csm_1b_args
+    from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
+    from csm_torch.data.dataset import CSMDataset, batch_iterator
+    from csm_torch.data.tokenizers import ByteTokenizer, MimiAudioTokenizer
+    from csm_torch.training.trainer import CSMTrainer, step_generator
+
+    args = csm_1b_args()
+    L = args.backbone.num_layers
+    mimi = MimiAudioTokenizer(mimi_init(torch.Generator(device=dev).manual_seed(1),
+                                        CSM_MIMI_CONFIG, device=dev))
+    t0 = time.perf_counter()
+    ds = CSMDataset(synthetic_examples(4, 28.0, seed=0), ByteTokenizer(), mimi, args=args)
+    batches = list(batch_iterator(ds, 2, shuffle=False))
+    details["train_data_s"] = time.perf_counter() - t0
+    if [b.tokens.shape[:2] for b in batches] != [(2, 512)] * 2:
+        raise AssertionError(f"batches {[tuple(b.tokens.shape) for b in batches]}: not (2, 512)")
+    del mimi
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        trainer = CSMTrainer(args=args, output_dir=out, learning_rate=TRAIN_LR, device=dev)
+        trainer.prepare_optimizer()
+        torch.cuda.synchronize()
+        details["train_init_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        batch, held_out = batches
+        steps, total = [], dict.fromkeys(expected_train_launches(L), 0)
+        for i in range(TRAIN_STEPS):
+            gen = step_generator(dev, 0, i)
+            torch.cuda.synchronize()
+            reset_counts()  # the window opens
+            t0 = time.perf_counter()
+            metrics = trainer._run_step(gen, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = read_counts()  # the window closes
+            check_launches(f"train step {i}", got, expected_train_launches(L))
+            for k in total:
+                total[k] += got[k]
+            m = {k: v.item() for k, v in metrics.items()}
+            if not all(map(math.isfinite, m.values())):
+                raise AssertionError(f"train step {i}: non-finite metrics {m}")
+            steps.append(dict(m, ms=ms, frames_per_s=m["num_target_frames"] / (ms / 1e3)))
+            log(f"train step {i}: loss {m['loss']:.4f} (semantic {m['semantic_loss']:.4f}, "
+                f"acoustic {m['acoustic_loss']:.4f}), grad norm {m['grad_norm']:.3f}, "
+                f"{ms:.1f} ms, {steps[-1]['frames_per_s']:.1f} trained frames/s")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not steps[-1]["loss"] < steps[0]["loss"]:
+            raise AssertionError(f"the loss did not fall on the repeated batch: "
+                                 f"{[s['loss'] for s in steps]}")
+        reset_counts()
+        val = trainer.validate([held_out])
+        got = read_counts()
+        check_launches("validate", got, expected_train_launches(L, steps=0, eval_steps=1))
+        if not math.isfinite(val):
+            raise AssertionError(f"validation loss {val}")
+        profile_step(trainer, step_generator(dev, 0, TRAIN_STEPS), batch, details)
+        tail = steps[1:]  # the first step pays for cuBLAS and allocator set-up
+        details["train_1b"] = {
+            "steps": steps, "validation_loss": val, "peak_memory_gib": peak,
+            "ms_per_step_median": statistics.median(s["ms"] for s in tail),
+            "frames_per_s_median": statistics.median(s["frames_per_s"] for s in tail),
+            "launches": total, "learning_rate": TRAIN_LR,
+        }
+        log(f"train_1b on {details['card']}: {TRAIN_STEPS} steps, median "
+            f"{details['train_1b']['ms_per_step_median']:.1f} ms/step, "
+            f"{details['train_1b']['frames_per_s_median']:.1f} trained frames/s, peak "
+            f"{peak:.2f} GiB, loss {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, "
+            f"validation {val:.4f}, launches {total}")
+        trainer.close()
+        del trainer, batches, batch, held_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: total[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_train_tiny(details, dev):
+    """CSMTrainer.train at tiny width on the card (epochs, validation, the
+    epoch / best / final checkpoints, resume from latest), then the training
+    CLI with --tiny-test on two synthetic recordings."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+
+    from csm_torch.cli.common import tiny_mimi
+    from csm_torch.data.audio import save_wav
+    from csm_torch.data.dataset import CSMDataset
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.models.config import tiny_test_args
+    from csm_torch.training.checkpoint import latest_checkpoint
+    from csm_torch.training.trainer import CSMTrainer
+    from csm_torch.utils.params import random_csm_params
+
+    args = tiny_test_args()
+    ds = CSMDataset(synthetic_examples(4, 2.0, seed=1), ByteTokenizer(), tiny_mimi(args, dev),
+                    args=args)
+
+    def trainer(out):
+        return CSMTrainer(args=args, params=random_csm_params(args, seed=0, device=dev),
+                          output_dir=out, learning_rate=1e-3, compute_dtype=torch.float32,
+                          remat=False, device=dev)
+
+    with tempfile.TemporaryDirectory() as out:
+        loss = trainer(out).train(ds, val_dataset=ds, batch_size=2, epochs=2, val_every=2,
+                                  save_every=100)
+        ckpt_dir = os.path.join(out, "checkpoints")
+        for name in ("epoch_0", "epoch_1", "best", "final"):
+            if not os.path.exists(os.path.join(ckpt_dir, name, "meta.json")):
+                raise AssertionError(f"train(): no {name} checkpoint")
+        if not (math.isfinite(loss) and latest_checkpoint(ckpt_dir).endswith("final")):
+            raise AssertionError(f"train(): loss {loss}, latest {latest_checkpoint(ckpt_dir)}")
+        tr = trainer(out)
+        resumed = tr.train(ds, batch_size=2, epochs=3, resume_from="latest")
+        if not (math.isfinite(resumed) and tr.global_step == 8):
+            raise AssertionError(f"resume: loss {resumed}, global step {tr.global_step} (want 8)")
+        details["train_tiny"] = {"loss": loss, "resumed_loss": resumed}
+        log(f"train_tiny: train() 2 epochs loss {loss:.4f}, resumed from latest to step "
+            f"{tr.global_step}, loss {resumed:.4f}")
+
+    with tempfile.TemporaryDirectory() as d:
+        for i, ex in enumerate(synthetic_examples(2, 1.5, seed=2)):
+            save_wav(os.path.join(d, f"utt{i}.wav"), ex.audio, 24_000)
+            with open(os.path.join(d, f"utt{i}.txt"), "w") as f:
+                f.write(ex.text)
+        out = os.path.join(d, "out")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "csm_torch.cli.train", "--audio-dir", d, "--tiny-test",
+             "--output-dir", out, "--val-split", "0", "--epochs", "2"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+        if res.returncode != 0:
+            raise AssertionError(f"csm_torch.cli.train failed:\n{res.stdout}\n{res.stderr}")
+        with open(os.path.join(out, "checkpoints", "final", "meta.json")) as f:
+            meta = _json.load(f)
+        if meta["global_step"] != 2:
+            raise AssertionError(f"CLI: final checkpoint at step {meta['global_step']}, want 2")
+        details["train_cli_s"] = time.perf_counter() - t0
+        log(f"train_cli: python -m csm_torch.cli.train --tiny-test ran to its end in "
+            f"{details['train_cli_s']:.1f} s ({res.stdout.strip().splitlines()[-1]})")
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def phase_train_reference(details, dev):
+    """One train step of a tiny float32 model at T=256 (max_seq_len raised)
+    on the card and on the CPU from the same weights, batch and frame
+    scores: the card runs the flash kernels forward and backward, the CPU
+    their plain versions.  The step's gradient function and its optimizer
+    update, as ``make_train_step`` runs them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from csm_torch.models.config import tiny_test_args
+    from csm_torch.training.losses import Batch, compute_loss
+    from csm_torch.training.optimizer import global_norm, make_optimizer, named_leaves
+    from csm_torch.training.train_step import _accumulated_grads
+    from csm_torch.utils.params import random_csm_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = tiny_test_args()
+    args = dataclasses.replace(args, backbone_config=dataclasses.replace(
+        args.backbone_config, max_seq_len=512))
+    B, T, K = 2, 256, args.audio_num_codebooks
+    rng = np.random.default_rng(0)
+    tokens = np.zeros((B, T, K + 1), np.int32)
+    mask = np.zeros((B, T, K + 1), bool)
+    tokens[:, :40, K] = rng.integers(1, args.text_vocab_size, (B, 40))
+    mask[:, :40, K] = True
+    audio = rng.integers(0, args.audio_vocab_size, (B, T - 40, K))
+    tokens[:, 40:, :K], mask[:, 40:, :K] = audio, True
+    targets = np.zeros((B, T, K), np.int32)
+    targets[:, 39 : T - 1] = audio
+    tmask = np.zeros((B, T), bool)
+    tmask[:, 39 : T - 1] = True
+    batch = Batch(*map(torch.from_numpy, (tokens, mask, targets, tmask)))
+    scores = torch.from_numpy(rng.random(B * T).astype(np.float32))
+    params0 = random_csm_params(args, seed=0)
+
+    def loss_fn(p, g, b, s):
+        return compute_loss(p, args, g, b, compute_dtype=torch.float32, remat=True,
+                            frame_scores=s)
+
+    res = {}
+    for where in ("cpu", dev):
+        params = tree_map(lambda t: t.clone().to(where), params0)
+        reset_counts()
+        metrics, grads = _accumulated_grads(loss_fn, params, None, batch.to(where), 1,
+                                            [scores.to(where)])
+        raw = [g.to("cpu", copy=True) for g in grads]  # the update clips grads in place
+        tx = make_optimizer(params, learning_rate=1e-3)
+        tx.update(params, grads, tx.init(params))
+        torch.cuda.synchronize()
+        res[str(where)] = (metrics["loss"].item(), raw, read_counts(),
+                           [t.detach().cpu() for _, t in named_leaves(params)])
+    (l_cpu, g_cpu, _, _), (l_gpu, g_gpu, counts, p_gpu) = res["cpu"], res[str(dev)]
+    check_launches("card-vs-CPU train step", counts, expected_train_launches(2))
+    norm = global_norm(g_cpu).item()
+    err = max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu))
+    if abs(l_gpu - l_cpu) > REF_LOSS_RTOL * abs(l_cpu) or err > REF_GRAD_SHARE * norm:
+        raise AssertionError(f"card-vs-CPU step: loss {l_gpu} vs {l_cpu}, max gradient "
+                             f"difference {err:.3e} against {REF_GRAD_SHARE} x norm {norm:.3e}")
+    if not all(torch.isfinite(t).all() for t in p_gpu):
+        raise AssertionError("card-vs-CPU step: the update gave non-finite params")
+    details["train_reference"] = {"loss_cpu": l_cpu, "loss_card": l_gpu, "grad_norm": norm,
+                                  "grad_max_abs_err": err, "launches": counts}
+    log(f"train_reference: loss card {l_gpu:.7f} cpu {l_cpu:.7f}, max gradient difference "
+        f"{err:.3e} ({err / norm:.2e} of the global norm {norm:.3e}), card launches {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -665,7 +1113,7 @@ def main() -> int:
         log(f"torch {details['torch']}, {torch.cuda.get_device_name(0)}")
 
         t0 = time.perf_counter()
-        logs = build_all([dec.SOURCE, fa.SOURCE, i4.SOURCE])
+        logs = build_all([dec.SOURCE, fa.SOURCE, fa.BWD_SOURCE, i4.SOURCE])
         details["build_s"] = time.perf_counter() - t0
         ptxas = [ln.strip() for out in logs.values() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -680,9 +1128,12 @@ def main() -> int:
         del flush
         launches = phase_main_path(details)
         launches["int4_matmul"] = phase_quantized(details)
+        phase_reference(details)
+        launches.update(phase_training(details, dev))
         for k in kernels:
             k["launches"] = launches[k["name"]]
-        phase_reference(details)
+        phase_train_tiny(details, dev)
+        phase_train_reference(details, dev)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

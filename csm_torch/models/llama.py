@@ -13,8 +13,9 @@ through ``int4_matmul`` (the fused-dequant kernel at M <= 64).
 Attention routing (the same paths the JAX package takes on its TPU):
   * cached S=1 steps over a float cache → ``decode_gqa_attention`` (the
     decode kernel);
-  * ``flash_pos`` given (cached prefill of S >= FLASH_MIN_SEQ) → the flash
-    kernel over the whole cache, masked from positions;
+  * ``flash_pos`` given (cached prefill of S >= FLASH_MIN_SEQ over the whole
+    cache, or the uncached training pass of T >= FLASH_MIN_SEQ) → the flash
+    kernels, masked from positions, forward and backward;
   * everything else (short prefill, the decoder's S=2 call, S=1 steps over
     an int8 cache) → plain ``gqa_attention`` under the materialized mask.
 An int8 (QuantKV) cache is dequantized for the flash and plain routes.
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from csm_torch.models.config import TransformerConfig
 from csm_torch.ops.attention import gqa_attention
@@ -91,11 +93,15 @@ def _proj(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def _layer(w, layer: int):
-    """One layer of a layer-stacked leaf (tensor or quantized dict)."""
+def _layers(w) -> list:
+    """The per-layer views of a layer-stacked leaf (tensor or quantized
+    dict).  One ``unbind`` per leaf: its backward stacks the L layer
+    gradients in one pass, where L separate ``w[layer]`` slices would each
+    add their gradient into a zero tensor the size of the whole stack."""
     if isinstance(w, dict):
-        return {k: v[layer] for k, v in w.items()}
-    return w[layer]
+        fields = {k: v.unbind(0) for k, v in w.items()}
+        return [dict(zip(fields, views)) for views in zip(*fields.values())]
+    return list(w.unbind(0))
 
 
 def _layer_forward(
@@ -125,17 +131,17 @@ def _layer_forward(
     k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, D), cos, sin)
     v = v.reshape(B, S, cfg.num_kv_heads, D)
 
-    if kv_layer is None:
-        attn = gqa_attention(q, k, v, mask)
-    else:
+    decode = False
+    if kv_layer is not None:
         k_cache, v_cache = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
         k, v = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
-        if flash_pos is not None:
-            attn = flash_gqa_attention(q, k, v, *flash_pos)
-        elif S == 1 and not isinstance(k_cache, QuantKV):
-            attn = decode_gqa_attention(q, k, v, mask)
-        else:
-            attn = gqa_attention(q, k, v, mask)
+        decode = S == 1 and not isinstance(k_cache, QuantKV)
+    if flash_pos is not None:  # q and k leave apply_rope contiguous; v may be a fused slice
+        attn = flash_gqa_attention(q, k, v.contiguous(), *flash_pos)
+    elif decode:
+        attn = decode_gqa_attention(q, k, v, mask)
+    else:
+        attn = gqa_attention(q, k, v, mask)
 
     h = h + _proj(attn.reshape(B, S, qd), lp["wo"])
 
@@ -158,6 +164,7 @@ def transformer_apply(
     cache: Optional[KVCache] = None,
     cache_offset: Optional[int] = None,
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the transformer.
 
@@ -170,20 +177,28 @@ def transformer_apply(
             ``cache_offset`` (a Python int) and attention runs over the
             whole cache.
         flash_pos: optional (q_pos (B, S) int32, kv_pos (T,) | (B, T) int32):
-            attend over the cache through the flash kernel, masked from
-            positions (cached calls only).
+            attend through the flash kernels, masked from positions: over
+            the cache when there is one, else over this call's own K/V (the
+            training pass gives ``(positions, positions[0])``).
+        remat: recompute each layer's activations in the backward pass
+            (``torch.utils.checkpoint`` per layer, the counterpart of
+            ``jax.checkpoint`` over the JAX package's scanned layer body):
+            only the layer inputs are kept between the passes.
 
     Returns (normed h (B, S, E), the cache or None).
     """
-    if flash_pos is not None and cache is None:
-        raise ValueError("flash_pos routes cached prefill only; pass a cache")
     cos, sin = rope_at_positions(cfg, positions)
     fixed = ("wo", "w2", "sa_norm", "mlp_norm")
     names = (("wqkv",) if "wqkv" in params else ("wq", "wk", "wv")) + (
         ("w13",) if "w13" in params else ("w1", "w3")
     ) + fixed
+    stacks = {n: _layers(params[n]) for n in names}
     for layer in range(cfg.num_layers):
-        lp = {n: _layer(params[n], layer) for n in names}
+        lp = {n: stacks[n][layer] for n in names}
         kv_layer = None if cache is None else (layer_half(cache.k, layer), layer_half(cache.v, layer))
-        h = _layer_forward(h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos)
+        layer_args = (h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos)
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(_layer_forward, *layer_args, use_reentrant=False)
+        else:
+            h = _layer_forward(*layer_args)
     return rms_norm(h, params["norm"], cfg.norm_eps), cache

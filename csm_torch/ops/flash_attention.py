@@ -1,12 +1,24 @@
-"""Causal GQA flash-attention forward: CUDA kernel and its plain version.
+"""Causal GQA flash attention, forward and backward: CUDA kernels, their
+plain versions, and the autograd Function over them.
 
-Prefill of S >= ``FLASH_MIN_SEQ`` tokens attends the whole backbone cache
-through ``flash_gqa_attention``, with the mask taken from integer positions
-(``kv_pos <= q_pos``) instead of a materialized (S, T) mask.  On a CUDA tensor
-it launches ``csrc/flash_attention.cu`` (the port of the TPU forward kernel
-in the JAX package's ``ops/flash_attention.py``); on a CPU tensor it computes
-``flash_attention_plain``.  There is no fallback between the two.  The
-backward kernels wait for training (ROADMAP.md B.4).
+Sequences of S >= ``FLASH_MIN_SEQ`` tokens (prefill over the backbone cache,
+and the uncached training pass) attend through ``flash_gqa_attention``, with
+the mask taken from integer positions (``kv_pos <= q_pos``) instead of a
+materialized (S, T) mask.  Three kernels, each the port of a TPU kernel of
+the JAX package's ``ops/flash_attention.py``:
+
+  * ``flash_attention_fwd`` → ``csrc/flash_attention.cu`` (``_kernel``): the
+    output and the per-row log-sum-exp L;
+  * ``flash_attention_bwd_dq`` → ``csrc/flash_attention_bwd.cu``
+    (``_dq_kernel``): dq from p = exp(s − L) recomputed per key tile;
+  * ``flash_attention_bwd_dkv`` → the same source (``_dkv_kernel``): dk and
+    dv, summed over each kv head's query heads inside the kernel.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it computes the plain version.  There is no fallback between the two and no
+switch to another backward.  The row sums Dr = Σ_d dO·O (minus the LSE
+cotangent, when there is one) are plain tensor ops outside the kernels, as
+in the JAX package.  Positions get no gradient.
 """
 
 from __future__ import annotations
@@ -19,16 +31,20 @@ import torch
 from csm_torch.utils.cuda_build import load_library
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 FLASH_MIN_SEQ = 256
 L_EMPTY = 1e30  # LSE of a row that sees no key
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke.py)
+# kernel launches since the last reset (read by chip_smoke.py)
+launches = 0  # forward
+dq_launches = 0
+dkv_launches = 0
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos):
-    """The kernel's function in plain PyTorch.
+    """The forward kernel's function in plain PyTorch.
 
     q (B, S, Hq, D), k/v (B, T, Hkv, D), q_pos (B, S) int, kv_pos (T,) or
     (B, T) int → (out (B, S, Hq, D) in q's dtype, lse (B, Hq, S) float32).
@@ -52,7 +68,63 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos):
     return out.reshape(B, S, Hq, D).to(q.dtype), lse
 
 
-def _check(q, k, v, q_pos, kv_pos):
+def _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta):
+    """p = exp(s − L) on visible pairs and ds = p (dO·vᵀ − Dr), float32,
+    (B, S, Hkv, G, T): what both backward kernels recompute."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if kv_pos.dim() == 1:
+        kv_pos = kv_pos[None, :].expand(B, T)
+    vis = (kv_pos[:, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
+    s = torch.einsum("bskgd,btkd->bskgt", q.float().reshape(B, S, Hkv, G, D), k.float())
+    s = (s * (1.0 / math.sqrt(D))).masked_fill(~vis, float("-inf"))
+    rows = lambda x: x.reshape(B, Hkv, G, S).permute(0, 3, 1, 2)[..., None]  # noqa: E731
+    p = torch.exp(s - rows(lse))
+    dp = torch.einsum("bskgd,btkd->bskgt", g.float().reshape(B, S, Hkv, G, D), v.float())
+    return p, p * (dp - rows(delta))
+
+
+def flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta):
+    """The dq kernel's function: dq = scale · ds·K, in q's dtype."""
+    B, S, Hq, D = q.shape
+    _, ds = _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta)
+    dq = torch.einsum("bskgt,btkd->bskgd", ds, k.float()) * (1.0 / math.sqrt(D))
+    return dq.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, q_pos, kv_pos, g, lse, delta):
+    """The dk/dv kernel's function: dk = scale · dsᵀ·Q and dv = pᵀ·dO,
+    summed over each kv head's query heads, in k's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    p, ds = _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta)
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    dk = torch.einsum("bskgt,bskgd->btkd", ds, qf) * (1.0 / math.sqrt(D))
+    dv = torch.einsum("bskgt,bskgd->btkd", p, g.float().reshape(B, S, Hkv, G, D))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_delta(out, g, g_lse=None):
+    """Dr = Σ_d dO·O per row, (B, Hq, S) float32, minus the LSE cotangent
+    ``g_lse`` (B, Hq, S) when there is one (∂lse_i/∂s_ij = p_ij folds it into
+    the row term)."""
+    delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, g, g_lse=None):
+    """The two backward kernels' function in plain PyTorch, float32 inside:
+    (dq in q's dtype, dk and dv in k's dtype)."""
+    delta = bwd_delta(out, g, g_lse)
+    dq = flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, q_pos, kv_pos, g, lse, delta))
+
+
+def _check(q, k, v, q_pos, kv_pos, extra=()):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B,S,Hq,D) and k/v (B,T,Hkv,D): "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -68,59 +140,132 @@ def _check(q, k, v, q_pos, kv_pos):
         raise ValueError(f"q/k/v must share a float32 or bfloat16 dtype: {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos)):
+    for name, t, shape, dtype in extra:
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    named = (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos))
+    for name, t in named + tuple((e[0], e[1]) for e in extra):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16 and name in ("q", "k", "v"):
+        if t.data_ptr() % 16 and t.is_floating_point():
             raise ValueError(f"{name} must be 16-byte aligned")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention: unsupported device {q.device}")
 
 
-def _lib():
-    lib = load_library(SOURCE)
-    fn = lib.csm_flash_attention_fwd
+def _bind(source, name, n_ptrs):
+    """The library's C function ``name``: n_ptrs pointers, then the shape
+    ints, kv_bstride, scale, dtype and the stream."""
+    fn = getattr(load_library(source), name)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                       ctypes.c_longlong, ctypes.c_float, i, vp]
+        fn.argtypes = [vp] * n_ptrs + [i] * 6 + [ctypes.c_longlong, ctypes.c_float, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos):
-    """Flash forward with the per-row log-sum-exp.
+def _launch(fn, what, ptrs, q, k, kv_pos):
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kv_bstride = T if kv_pos.dim() == 2 and kv_pos.shape[0] == B and B > 1 else 0
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in ptrs), B, S, T, Hq, Hkv, D, kv_bstride,
+                 1.0 / math.sqrt(D), _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
-    q (B, S, Hq, D); k/v (B, T, Hkv, D); q_pos (B, S) int32; kv_pos (T,) or
-    (B, T) int32 (PAD_POS marks dead slots).  Returns (out (B, S, Hq, D) in
-    q's dtype, lse (B, Hq, S) float32, L_EMPTY where no key is visible).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+
+def flash_attention_fwd(q, k, v, q_pos, kv_pos):
+    """The forward kernel's wrapper: (out (B, S, Hq, D) in q's dtype,
+    lse (B, Hq, S) float32, L_EMPTY where no key is visible).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     _check(q, k, v, q_pos, kv_pos)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_gqa_attention: unsupported device {q.device}")
     global launches
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    kv_bstride = T if kv_pos.dim() == 2 and kv_pos.shape[0] == B and B > 1 else 0
-    with torch.cuda.device(q.device):
-        err = _lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, S, T, Hq, Hkv, D, kv_bstride,
-            1.0 / math.sqrt(D), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+    _launch(_bind(SOURCE, "csm_flash_attention_fwd", 7), "flash attention",
+            (q, k, v, q_pos, kv_pos, out, lse), q, k, kv_pos)
     launches += 1
     return out, lse
 
 
+def _bwd_checks(q, g, lse, delta):
+    B, S, Hq, _ = q.shape
+    return (("g", g, q.shape, q.dtype), ("lse", lse, (B, Hq, S), torch.float32),
+            ("delta", delta, (B, Hq, S), torch.float32))
+
+
+def flash_attention_bwd_dq(q, k, v, q_pos, kv_pos, g, lse, delta):
+    """The dq kernel's wrapper: g = dO (B, S, Hq, D) in q's dtype, lse and
+    delta (B, Hq, S) float32 → dq in q's dtype.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _check(q, k, v, q_pos, kv_pos, _bwd_checks(q, g, lse, delta))
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta)
+    global dq_launches
+    dq = torch.empty_like(q)
+    _launch(_bind(BWD_SOURCE, "csm_flash_attention_bwd_dq", 9), "flash backward dq",
+            (q, k, v, q_pos, kv_pos, g, lse, delta, dq), q, k, kv_pos)
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, q_pos, kv_pos, g, lse, delta):
+    """The dk/dv kernel's wrapper → (dk, dv), each (B, T, Hkv, D) in k's
+    dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    _check(q, k, v, q_pos, kv_pos, _bwd_checks(q, g, lse, delta))
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, q_pos, kv_pos, g, lse, delta)
+    global dkv_launches
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_bind(BWD_SOURCE, "csm_flash_attention_bwd_dkv", 10), "flash backward dk/dv",
+            (q, k, v, q_pos, kv_pos, g, lse, delta, dk, dv), q, k, kv_pos)
+    dkv_launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and the two backward kernels for its gradient
+    through the output and the log-sum-exp; an unused output's cotangent
+    comes as None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos):
+        ctx.set_materialize_grads(False)
+        out, lse = flash_attention_fwd(q, k, v, q_pos, kv_pos)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        """dq, dk, dv through the dq kernel, then the dk/dv kernel; autograd
+        may hand a non-contiguous g."""
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        g = torch.zeros_like(out) if g is None else g.contiguous()
+        delta = bwd_delta(out, g, g_lse)
+        dq = flash_attention_bwd_dq(q, k, v, q_pos, kv_pos, g, lse, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, q_pos, kv_pos, g, lse, delta)
+        return dq, dk, dv, None, None
+
+
+def flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos):
+    """Flash attention with the per-row log-sum-exp, differentiable in both.
+
+    q (B, S, Hq, D); k/v (B, T, Hkv, D); q_pos (B, S) int32; kv_pos (T,) or
+    (B, T) int32 (PAD_POS marks dead slots).  Returns (out (B, S, Hq, D) in
+    q's dtype, lse (B, Hq, S) float32, L_EMPTY where no key is visible)."""
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos)
+
+
 def flash_gqa_attention(q, k, v, q_pos, kv_pos) -> torch.Tensor:
-    """Flash forward, output only: equal to ``gqa_attention`` under
-    ``causal_mask_from_positions(q_pos, kv_pos)`` wherever a row sees a key."""
-    return flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos)[0]
+    """Flash attention, output only: equal to ``gqa_attention`` under
+    ``causal_mask_from_positions(q_pos, kv_pos)`` wherever a row sees a key,
+    and differentiable through the backward kernels."""
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos)[0]

@@ -1,0 +1,127 @@
+"""Train and eval steps for CSM.
+
+The counterpart of the JAX package's ``training/train_step.py``: one
+optimizer step is the loss (semantic + amortized acoustic), its backward,
+the raw gradients' global norm, the clip and the per-component AdamW
+update.  PyTorch runs eagerly, so a step is a Python function instead of
+one compiled program; on the card the backbone's attention runs through
+the flash kernels in both passes.
+
+Parameters update IN PLACE (``torch.no_grad`` writes into the same
+tensors): this replaces the JAX package's buffer donation, so a caller that
+needs the old values copies them first.  Metrics come back as device
+tensors; nothing here reads them on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from csm_torch.models.config import ModelArgs
+from csm_torch.training.losses import Batch, compute_loss
+from csm_torch.training.optimizer import Optimizer, TrainState, global_norm, named_leaves
+
+
+def _leaves(params):
+    leaves = [t for _, t in named_leaves(params)]
+    for t in leaves:
+        if not t.requires_grad:
+            t.requires_grad_(True)
+    return leaves
+
+
+def _accumulated_grads(loss_fn, params, generator, batch: Batch, n_micro: int, frame_scores):
+    """(metrics, grads) over the whole batch, or the mean of the gradients of
+    ``n_micro`` equal slices of it (count metrics ``num_*`` sum, the rest
+    average): the JAX package's in-step microbatching."""
+    leaves = _leaves(params)
+    B = batch.tokens.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch dim {B} not divisible by {n_micro} microbatches")
+    m = B // n_micro
+    grads, metrics = None, None
+    for i in range(n_micro):
+        part = Batch(*(t[i * m : (i + 1) * m] for t in batch))
+        scores = None if frame_scores is None else frame_scores[i]
+        loss, mt = loss_fn(params, generator, part, scores)
+        g = torch.autograd.grad(loss, leaves)
+        if grads is None:
+            grads, metrics = list(g), {k: v.detach() for k, v in mt.items()}
+        else:
+            for acc, gi in zip(grads, g):
+                acc.add_(gi)
+            metrics = {k: metrics[k] + mt[k].detach() for k in metrics}
+    if n_micro > 1:
+        grads = [g / n_micro for g in grads]
+        metrics = {k: v if k.startswith("num_") else v / n_micro for k, v in metrics.items()}
+    return metrics, grads
+
+
+def make_train_step(
+    args: ModelArgs,
+    tx: Optimizer,
+    semantic_weight: float = 100.0,
+    acoustic_weight: float = 1.0,
+    amortization_ratio: int = 16,
+    compute_dtype=torch.bfloat16,
+    remat: bool = False,
+    seq_mesh=None,
+    pp_mesh=None,
+    grad_microbatches: int = 1,
+) -> Callable:
+    """Returns ``step(state, generator, batch, frame_scores=None) ->
+    (state, metrics)``.
+
+    ``generator`` draws the amortized frame subset; ``frame_scores``
+    replaces the draw (a list of ``grad_microbatches`` (B/M·T,) tensors, or
+    one (B·T,) tensor when M = 1).  ``grad_microbatches`` — split the batch
+    into M slices and average their gradients (the semantics of
+    ``optax.MultiSteps``, within one step; must divide the batch).
+    ``metrics["grad_norm"]`` is the raw global norm, before clipping."""
+
+    def loss_fn(params, generator, batch, frame_scores):
+        return compute_loss(
+            params, args, generator, batch, semantic_weight=semantic_weight,
+            acoustic_weight=acoustic_weight, amortization_ratio=amortization_ratio,
+            compute_dtype=compute_dtype, remat=remat, seq_mesh=seq_mesh, pp_mesh=pp_mesh,
+            frame_scores=frame_scores,
+        )
+
+    def step(state: TrainState, generator: Optional[torch.Generator], batch: Batch,
+             frame_scores=None):
+        if grad_microbatches == 1 and frame_scores is not None:
+            frame_scores = [frame_scores]
+        metrics, grads = _accumulated_grads(
+            loss_fn, state.params, generator, batch, grad_microbatches, frame_scores
+        )
+        metrics["grad_norm"] = global_norm(grads)
+        tx.update(state.params, grads, state.opt_state)
+        return TrainState(state.params, state.opt_state, state.step + 1), metrics
+
+    return step
+
+
+def make_eval_step(
+    args: ModelArgs,
+    semantic_weight: float = 100.0,
+    acoustic_weight: float = 1.0,
+    amortization_ratio: int = 16,
+    compute_dtype=torch.bfloat16,
+    seq_mesh=None,
+    pp_mesh=None,
+) -> Callable:
+    """Returns ``eval_step(params, generator, batch) -> metrics`` (device
+    tensors, no gradients)."""
+
+    @torch.no_grad()
+    def eval_step(params, generator: Optional[torch.Generator], batch: Batch):
+        _, metrics = compute_loss(
+            params, args, generator, batch, semantic_weight=semantic_weight,
+            acoustic_weight=acoustic_weight, amortization_ratio=amortization_ratio,
+            compute_dtype=compute_dtype, seq_mesh=seq_mesh, pp_mesh=pp_mesh,
+        )
+        return metrics
+
+    return eval_step

@@ -1,0 +1,342 @@
+"""The full-parameter trainer.
+
+The counterpart of the JAX package's ``CSMTrainer`` (``training/trainer.py``):
+an epoch loop over bucketed batches with gradient accumulation and
+clipping, periodic validation with best-checkpoint saving, periodic, epoch
+and final checkpoints, resume from ``latest``, a non-finite-loss abort that
+saves first, and sample generation through the port's ``Generator``.
+
+A step's loss and metrics stay on the device and are read one step later,
+while the next step is already queued, so the host never waits for the
+card on every step.  The LoRA trainers, device meshes, checkpoints written
+in the background and loading a real ``ckpt.pt`` or an orbax checkpoint
+wait for later slices (ROADMAP.md A.10b, A.11, A.13).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from csm_torch.generator import _waits
+from csm_torch.models.config import ModelArgs, csm_1b_args
+from csm_torch.training import checkpoint as ckpt
+from csm_torch.training.dataset_utils import as_batches, prefetch_batches
+from csm_torch.training.optimizer import init_train_state, make_optimizer
+from csm_torch.training.train_step import make_eval_step, make_train_step
+from csm_torch.utils.device import resolve_device
+from csm_torch.utils.observability import MetricsLogger, device_memory_stats
+from csm_torch.utils.params import random_csm_params, tree_map
+
+
+def setup_logger(name: str, log_file: Optional[str] = None, level=logging.INFO):
+    """Console + file logger."""
+    logger = logging.getLogger(name)
+    logger.setLevel(level)
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s")
+    sh = logging.StreamHandler()
+    sh.setFormatter(fmt)
+    logger.addHandler(sh)
+    if log_file:
+        os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
+    return logger
+
+
+def step_generator(device, seed: int, step: int) -> torch.Generator:
+    """The random stream of one step (the amortized frame draw): a function
+    of the seed and the step, so a resumed run draws what it would have."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+
+
+class CSMTrainer:
+    """Full-parameter trainer (reference: src/csm/training/trainer.py:26).
+
+    Args mirror the reference surface (model path, output dir, base LR,
+    per-component multipliers, semantic/acoustic weights), plus
+    ``device`` (``"cuda"`` unless the caller asks for the CPU),
+    ``compute_dtype`` (activations; bf16 by default), ``param_dtype``
+    (master weights: float32 or bfloat16) and ``remat`` (recompute each
+    layer in the backward pass; on by default)."""
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        output_dir: str = "./output",
+        learning_rate: float = 1e-5,
+        backbone_lr_multiplier: float = 0.1,
+        decoder_lr_multiplier: float = 1.0,
+        embedding_lr_multiplier: float = 0.5,
+        semantic_weight: float = 100.0,
+        acoustic_weight: float = 1.0,
+        weight_decay: float = 0.01,
+        args: Optional[ModelArgs] = None,
+        params: Optional[dict] = None,
+        compute_dtype=torch.bfloat16,
+        remat: bool = True,
+        log_file: Optional[str] = None,
+        parallel=None,
+        param_dtype=torch.float32,
+        async_checkpointing: bool = False,
+        prefetch_depth: int = 2,
+        device="cuda",
+    ):
+        if parallel is not None:
+            raise _waits("training over a device mesh", "A.11")
+        if async_checkpointing:
+            raise _waits("checkpoints written in the background", "A.10b")
+        if param_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype}")
+        self.device = resolve_device(device)
+        self.output_dir = output_dir
+        os.makedirs(output_dir, exist_ok=True)
+        self.logger = setup_logger(
+            self.__class__.__name__, log_file or os.path.join(output_dir, "training.log")
+        )
+        self.learning_rate = learning_rate
+        self.lr_multipliers = {
+            "backbone": backbone_lr_multiplier,
+            "decoder": decoder_lr_multiplier,
+            "embeddings": embedding_lr_multiplier,
+            "other": 1.0,
+        }
+        self.semantic_weight = semantic_weight
+        self.acoustic_weight = acoustic_weight
+        self.weight_decay = weight_decay
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.param_dtype = param_dtype
+
+        self.args, params = self._load_model(model_path, args, params)
+        # Training updates these tensors in place: given params already on
+        # the device in ``param_dtype`` are trained as they are, so a caller
+        # that needs the old values passes a copy.
+        self.params = tree_map(lambda t: t.detach().to(self.device, param_dtype), params)
+        self.tx = None
+        self.state = None
+        self.epoch = 0
+        self.global_step = 0
+        self.best_val_loss = float("inf")
+        self.prefetch_depth = prefetch_depth
+        self.metrics = MetricsLogger(os.path.join(output_dir, "metrics.jsonl"))
+
+    # ---- model loading ----
+
+    def _load_model(self, model_path, args, params):
+        if params is not None:
+            return args or csm_1b_args(), params
+        if model_path is None:
+            args = args or csm_1b_args()
+            self.logger.info("random-initializing model (no model_path)")
+            return args, random_csm_params(args, seed=0, device=self.device)
+        raise _waits("loading a torchtune ckpt.pt or an orbax checkpoint", "A.13")
+
+    # ---- optimizer ----
+
+    def prepare_optimizer(
+        self,
+        freeze_backbone: bool = False,
+        freeze_decoder: bool = False,
+        freeze_embeddings: bool = False,
+        max_grad_norm: float = 1.0,
+        accumulation_steps: int = 1,
+        mu_dtype=None,
+        nu_dtype=None,
+        grad_microbatches: int = 1,
+    ):
+        self.tx = make_optimizer(
+            self.params,
+            learning_rate=self.learning_rate,
+            weight_decay=self.weight_decay,
+            max_grad_norm=max_grad_norm,
+            lr_multipliers=self.lr_multipliers,
+            freeze_backbone=freeze_backbone,
+            freeze_decoder=freeze_decoder,
+            freeze_embeddings=freeze_embeddings,
+            accumulation_steps=accumulation_steps,
+            mu_dtype=mu_dtype,
+            nu_dtype=nu_dtype,
+        )
+        self.state = init_train_state(self.params, self.tx)
+        self._step_fn = make_train_step(
+            self.args, self.tx, semantic_weight=self.semantic_weight,
+            acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
+            remat=self.remat, grad_microbatches=grad_microbatches,
+        )
+        self._eval_fn = make_eval_step(
+            self.args, semantic_weight=self.semantic_weight,
+            acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
+        )
+        return self.tx
+
+    def _run_step(self, generator, batch):
+        """One optimizer step on ``batch`` (moved to the device); returns the
+        step's metrics as device tensors."""
+        self.state, metrics = self._step_fn(self.state, generator, batch.to(self.device))
+        return metrics
+
+    # ---- training loop ----
+
+    def train(
+        self,
+        train_dataset,
+        val_dataset=None,
+        batch_size: int = 2,
+        epochs: int = 1,
+        val_every: int = 100,
+        save_every: int = 500,
+        max_grad_norm: float = 1.0,
+        accumulation_steps: int = 1,
+        resume_from: Optional[str] = None,
+        seed: int = 0,
+    ) -> float:
+        if self.state is None:
+            self.prepare_optimizer(
+                max_grad_norm=max_grad_norm, accumulation_steps=accumulation_steps
+            )
+        if resume_from:
+            self.load_checkpoint(resume_from)
+
+        last_loss = float("nan")
+        # Metrics are read one step late: step N's device scalars are read
+        # after step N+1 is queued, so the card never idles on the host's
+        # read (a per-step ``.item()`` would wait for each step to finish
+        # before the next one is issued).
+        pending = None  # (global_step, epoch, device metrics of that step)
+
+        def drain(p):
+            nonlocal last_loss
+            gs, ep, m = p
+            m = {k: v.item() for k, v in m.items()}
+            last_loss = m["loss"]
+            if not math.isfinite(last_loss):
+                # a non-finite loss is a data or LR fault: save, then fail
+                # loudly.  With the lagged read the saved state may be one
+                # step past the first non-finite loss.
+                self.save_checkpoint("nonfinite_abort")
+                self.close()
+                raise FloatingPointError(
+                    f"non-finite loss {last_loss} at step {gs} "
+                    f"(state saved; may include one later step)"
+                )
+            self.metrics.log(gs, epoch=ep, loss=m["loss"], semantic_loss=m["semantic_loss"],
+                             acoustic_loss=m["acoustic_loss"], grad_norm=m["grad_norm"])
+            if gs % 10 == 0:
+                self.logger.info(
+                    f"epoch {ep} step {gs} loss {last_loss:.4f} "
+                    f"sem {m['semantic_loss']:.4f} ac {m['acoustic_loss']:.4f}"
+                )
+
+        for epoch in range(self.epoch, epochs):
+            self.epoch = epoch
+            t_epoch = time.time()
+            n_batches = 0
+            for batch in prefetch_batches(
+                as_batches(train_dataset, batch_size, shuffle=True, seed=seed + epoch),
+                depth=self.prefetch_depth,
+            ):
+                metrics = self._run_step(step_generator(self.device, seed, self.global_step), batch)
+                self.global_step += 1
+                n_batches += 1
+                prev, pending = pending, (self.global_step, epoch, metrics)
+                if prev is not None:
+                    drain(prev)
+                at_val = val_dataset is not None and self.global_step % val_every == 0
+                at_save = self.global_step % save_every == 0
+                if (at_val or at_save) and pending is not None:
+                    p, pending = pending, None  # catch up before validating / saving
+                    drain(p)
+                if at_val:
+                    val_loss = self.validate(val_dataset, batch_size, seed=seed)
+                    if val_loss < self.best_val_loss:
+                        self.best_val_loss = val_loss
+                        self.save_checkpoint("best")
+                if at_save:
+                    self.save_checkpoint(f"step_{self.global_step}")
+            if pending is not None:  # epoch boundary: catch up
+                p, pending = pending, None
+                drain(p)
+
+            dt = time.time() - t_epoch
+            self.logger.info(
+                f"epoch {epoch} done: {n_batches} batches in {dt:.1f}s "
+                f"({n_batches * batch_size / max(dt, 1e-9):.2f} samples/s) "
+                f"{device_memory_stats(self.device)}"
+            )
+            self.save_checkpoint(f"epoch_{epoch}")
+
+        self.save_checkpoint("final")
+        self.close()
+        return last_loss
+
+    def validate(self, val_dataset, batch_size: int = 2, seed: int = 0) -> float:
+        """Mean eval loss over ``val_dataset`` (reference:
+        src/csm/training/trainer.py:359-394); one host read at the end."""
+        losses = []
+        for i, batch in enumerate(as_batches(val_dataset, batch_size, shuffle=False)):
+            m = self._eval_fn(self.state.params, step_generator(self.device, seed, i),
+                              batch.to(self.device))
+            losses.append(m["loss"])
+        val = float(torch.stack(losses).mean().item()) if losses else float("nan")
+        self.logger.info(f"validation loss {val:.4f}")
+        return val
+
+    # ---- checkpointing ----
+
+    def save_checkpoint(self, name: str) -> str:
+        path = ckpt.save_checkpoint(
+            os.path.join(self.output_dir, "checkpoints"), name, self.state, self.args,
+            epoch=self.epoch, global_step=self.global_step, loss=self.best_val_loss,
+        )
+        self.logger.info(f"saved checkpoint {path}")
+        return path
+
+    def close(self) -> None:
+        """Flush and close the metrics file (reopened by the next log);
+        idempotent."""
+        self.metrics.close()
+
+    def load_checkpoint(self, path: Optional[str] = None):
+        if path is None or path == "latest":
+            path = ckpt.latest_checkpoint(os.path.join(self.output_dir, "checkpoints"))
+            if path is None:
+                raise FileNotFoundError("no latest checkpoint to resume from")
+        state, meta = ckpt.load_checkpoint(path, self.device)
+        if self.tx is None or state.opt_state is None:
+            raise ValueError("resume needs prepare_optimizer() first and a checkpoint "
+                             "with optimizer state")
+        self.state = state
+        self.params = state.params
+        self.epoch = meta.get("epoch", 0)
+        self.global_step = meta.get("global_step", 0)
+        self.best_val_loss = meta.get("loss", float("inf"))
+        self.logger.info(f"resumed from {path} (epoch {self.epoch}, step {self.global_step})")
+
+    # ---- sample generation ----
+
+    @torch.no_grad()
+    def generate_sample(
+        self, text: str, speaker_id: int = 0, output_path: Optional[str] = None,
+        mimi=None, max_audio_length_ms: float = 5_000, text_tokenizer=None,
+    ) -> np.ndarray:
+        from csm_torch.data.audio import save_wav
+        from csm_torch.generator import Generator
+
+        params = self.state.params if self.state is not None else self.params
+        gen = Generator(
+            params, self.args, mimi=mimi, text_tokenizer=text_tokenizer,
+            compute_dtype=self.compute_dtype, device=self.device,
+        )
+        audio = gen.generate(text, speaker=speaker_id, max_audio_length_ms=max_audio_length_ms)
+        if output_path:
+            save_wav(output_path, audio, gen.sample_rate)
+        return audio

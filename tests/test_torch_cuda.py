@@ -153,3 +153,67 @@ def test_int4_kernel_refuses_what_it_cannot_take(cuda):
         tint4.fused_int4_matmul(x1, q1)
     with pytest.raises(ValueError, match="on"):
         tint4.fused_int4_matmul(x, dict(q, w4p=q["w4p"].cpu()))
+
+
+def _bwd_inputs(S, T, Hq, Hkv, D, kv_rows, dev, dtype, seed=0, B=2):
+    """Backward inputs: the queries are the last S of T positions; with
+    kv_rows = 2 each row's (B, T) kv_pos marks a few slots dead (PAD_POS),
+    never slot 0, so every row sees a key.  out and lse from the plain
+    forward in float32."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)  # noqa: E731
+    q, k, v, g = f(B, S, Hq, D), f(B, T, Hkv, D), f(B, T, Hkv, D), f(B, S, Hq, D)
+    q_pos = torch.arange(T - S, T, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+    kv_pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T).contiguous()
+    if kv_rows == 2:
+        for b in range(B):
+            kv_pos[b, torch.from_numpy(rng.choice(np.arange(1, T), 7 * (b + 1), replace=False))] = PAD
+    else:
+        kv_pos = kv_pos[0].contiguous()
+    out, lse = tfa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    g_lse = torch.from_numpy(rng.standard_normal((B, Hq, S)).astype(np.float32)).to(dev)
+    return q, k, v, q_pos, kv_pos, out, lse, g, g_lse
+
+
+@pytest.mark.parametrize("dtype,rel_atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                                 (torch.bfloat16, 2**-8, 2**-7)])
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,kv_rows,with_lse", [
+    (256, 256, 32, 8, 64, 1, False),  # the training shape's heads, (T,) kv_pos
+    (300, 300, 4, 2, 16, 2, True),    # ragged S = T, (B, T) kv_pos, an LSE cotangent
+    (200, 300, 8, 2, 128, 2, False),  # S < T, D = 128 (the largest tiles)
+    (70, 130, 4, 1, 32, 1, True),     # one kv head for four query heads
+])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, rel_atol, rtol, S, T, Hq, Hkv, D, kv_rows,
+                                       with_lse):
+    """Both backward kernels against the plain version; the atol scales with
+    each gradient's RMS (1e-5 of it in float32, 2**-8 in bf16, where the
+    kernel and the plain version round the float32 sums to bf16 once)."""
+    q, k, v, q_pos, kv_pos, out, lse, g, g_lse = _bwd_inputs(S, T, Hq, Hkv, D, kv_rows, cuda,
+                                                             dtype)
+    delta = tfa.bwd_delta(out, g, g_lse if with_lse else None)
+    n = (tfa.dq_launches, tfa.dkv_launches)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, q_pos, kv_pos, g, lse, delta)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, q_pos, kv_pos, g, lse, delta)
+    torch.cuda.synchronize()
+    assert (tfa.dq_launches, tfa.dkv_launches) == (n[0] + 1, n[1] + 1)
+    want = tfa.flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, g,
+                                         g_lse if with_lse else None)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype, name
+        rms = ref.float().pow(2).mean().sqrt().item()
+        torch.testing.assert_close(got.float(), ref.float(), atol=rel_atol * rms, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_autograd_launches_the_kernels(cuda):
+    """On a card the autograd Function's forward and backward go through the
+    kernels (one launch each), with a non-contiguous cotangent."""
+    q, k, v, q_pos, kv_pos, *_ = _bwd_inputs(256, 256, 8, 2, 64, 1, cuda, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    out = tfa.flash_gqa_attention(q, k, v, q_pos, kv_pos)
+    g = torch.randn(out.shape[::-1], device=cuda, dtype=out.dtype).permute(3, 2, 1, 0)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert all(torch.isfinite(x.float()).all() for x in grads)

@@ -168,6 +168,14 @@ except RuntimeError as e:
     assert "device='cpu'" in str(e), e
 else:
     raise SystemExit("Generator ran without a card")
+from csm_torch.training.trainer import CSMTrainer
+try:
+    CSMTrainer(args=args, output_dir="never-made")
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise SystemExit("CSMTrainer ran without a card")
+assert {"csm_torch.training.trainer", "csm_torch.cli.train", "csm_torch.data.dataset"} <= set(names)
 print("OK", len(names))
 """
 
