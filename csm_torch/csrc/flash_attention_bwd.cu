@@ -17,31 +17,57 @@
 // each.  At the training shape (B=2, S=T=512, Hq=32, Hkv=8, D=64, bf16)
 // that is ~17 MB (5 µs at 3.35 TB/s) against ~5.4 GFLOP (5.4 µs at the bf16
 // tensor-core rate): balanced; at S=T=2048 ~86 GFLOP (87 µs), bound by
-// operations.  That bound assumes tensor cores, which this body does not
-// use: its float32 CUDA-core FMAs reach a small fraction of that rate, so
-// in practice the arithmetic limits both kernels at every S.
+// operations.
 //
-// Design (correctness first).  Both kernels stage 64-row tiles in shared
-// memory as float32 (at D = 128 the dk/dv kernel's K, V, Q, dO, P and dS
-// tiles take ~166 KB of the 227 KB a block may use) and use 256 threads, each
-// holding a 2x8 block of a 64x64 score tile and a 2x(D/8) block of its
-// accumulators, so no variant needs more than ~128 registers.
-//  * dq: one block per (b, query head, 64 query rows).  It loops over 64-key
-//    tiles, recomputes s, p, dP = dO·Vᵀ and dS = p(dP − Dr), stages dS and
-//    accumulates dq += dS·K in float32; dq is written once, in q's dtype.
-//    A key tile whose smallest position exceeds the block's largest query
-//    position is skipped (the causal skip of the forward).
-//  * dk/dv: one block per (b, kv head, 64 keys).  It loops over the group's
-//    Hq/Hkv query heads and their 64-row query tiles, skipping a query tile
-//    whose largest position is below the key tile's smallest, and
-//    accumulates dv += Pᵀ·dO and dk += dSᵀ·Q in float32.  The GQA sum stays
-//    inside the block, as on the TPU: no atomics, so the result is
-//    deterministic.  dk/dv are written once, in k's dtype.
-// Ragged S and T are handled by bounds: rows >= S and keys >= T are never
-// loaded (their tiles read as zeros, their p as 0) or written, where the TPU
-// kernels pad with sentinel positions.  Tensor cores (mma.sync / wgmma) and
-// K/V tiles shared across a group's query heads in the dq kernel are later
-// work.
+// Two routes, chosen by dtype in `dispatch`:
+//
+// bf16: tensor cores.  All five products are mma.sync.m16n8k16 (bf16 in,
+// float32 accumulators in registers), fed by ldmatrix from bf16 tiles in
+// shared memory whose 16-byte chunks are XOR-swizzled by row, so ldmatrix
+// and its transposing form read without bank conflicts at every D.
+// mma.sync rather than wgmma: it needs no warpgroup-wide descriptors or
+// 64-row tiles, its A operand can come from registers at any 16x16 (so P
+// and dS go from the S/dP accumulators straight into the next product), and
+// it is the smaller step from the float32 kernels; wgmma is later work.
+// Rows of one kv head's group are "stacked": row f = i·G + g is position i,
+// query head kvh·G + g, and a group's heads are adjacent in (B, S, Hq, D).
+//  * dq: one block (4 warps) per 64 stacked rows of a kv head (the group's
+//    G heads at 64/G positions), so every K/V tile loaded serves the whole
+//    group, as the JAX kernel stacks its qpk heads.  It walks 64-key tiles
+//    with cp.async double buffering (the next K/V tile and its positions
+//    load while this one is computed).  Each warp owns 16 rows: S = Q·Kᵀ and
+//    dP = dO·Vᵀ, then p and dS = p (dP − Dr) in registers; dS is rounded to
+//    bf16 (as the JAX kernel rounds it) and becomes the A operand of
+//    dq += dS·K.  Blocks start from the last rows, which see the most keys.
+//  * dk/dv: one block (4 warps) per 32 keys of a kv head.  It walks tiles of
+//    64 stacked rows with cp.async double buffering of Q, dO, L, Dr and the
+//    positions; the GQA sum is part of each product, with no atomics, so the
+//    result is deterministic.  Warp w owns keys 16·(w%2).. and the rows
+//    32·(w/2).. of each tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then Pᵀ and dSᵀ
+//    rounded to bf16 (as the JAX kernel rounds p and ds) are the A operands
+//    of dv += Pᵀ·dO and dk += dSᵀ·Q.  The two row halves are summed through
+//    shared memory at the end.  32-key blocks, and two warps on every 16
+//    keys, fill the card at the training shape: at B=2, S=T=512 the grid is
+//    256 blocks of 4 warps for 132 SMs, where 64-key blocks gave 128.
+// Blocks are 4 warps: at ~160 registers a thread (D <= 64) three fit an SM.
+// Causal tile skipping both ways: a bitmap of the tiles holding a visible
+// (row, key) pair is built first (a warp vote per tile); only those tiles
+// are loaded and computed.
+//
+// float32: CUDA cores, unchanged since the first version (no tensor core
+// takes float32 without rounding it to TF32).  Both kernels stage 64-row
+// float32 tiles in shared memory and use 256 threads, each holding a 2x8
+// block of a 64x64 score tile and a 2x(D/8) block of its accumulators.
+//  * dq: one block per (b, query head, 64 query rows) over 64-key tiles,
+//    dq += dS·K in float32; a key tile no row sees is skipped.
+//  * dk/dv: one block per (b, kv head, 64 keys) over the group's query heads
+//    and their 64-row tiles, dv += Pᵀ·dO and dk += dSᵀ·Q in float32, the
+//    GQA sum inside the block, no atomics.
+//
+// Both routes: ragged S and T are handled by bounds: rows >= S and keys >= T
+// are never loaded (their tiles read as zeros, their p as 0) or written,
+// where the TPU kernels pad with sentinel positions; a row with L = 1e30
+// gets p = 0; dq, dk and dv are written once, in the inputs' dtype.
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -383,6 +409,525 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,         // (B, S, Hq, D)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+// 4 warps a block: at D <= 64 the kernels take ~160 registers a thread, so
+// three blocks (12 warps) fit an SM where one 8-warp block would
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int DQ_ROWS = 16 * kWarps;  // stacked (position, head) rows of a dq block
+constexpr int DQ_BK = 64;             // keys per tile of the dq kernel
+constexpr int KV_BK = 32;             // keys of a dk/dv block: 16 per warp row group
+constexpr int KV_KW = KV_BK / 16;     // warp row groups of a dk/dv block
+constexpr int KV_BQ = 64;             // stacked rows per tile of the dk/dv kernel: 32 per warp half
+static_assert(kWarps == 2 * KV_KW, "each 16 keys take two warps, one per half of a row tile");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU's ex2.approx (flushing denormal results to 0).  p is rounded
+// to bf16 before every product that takes it, far coarser than ex2's ~2 ulp;
+// exp2f's extra handling of denormal results costs time and, at the training
+// shapes on the H100, changed no gradient bit.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of 16-byte chunk c of row r in a tile of D bf16 a row.  The
+// chunk index is XOR-swizzled with the row so that the 8 rows an ldmatrix
+// (or a transposing ldmatrix) reads at one chunk column land in 8 different
+// bank groups: no bank conflicts for any D in {16, 32, 64, 128}.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  if constexpr (CPR >= 8) {
+    return (r * CPR + (c ^ (r & 7))) * 8;
+  } else {
+    return (r * CPR + (c ^ ((r / (8 / CPR)) & (CPR - 1)))) * 8;
+  }
+}
+
+// cp.async of 16 (or 4) bytes; an invalid source reads nothing and fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a·b for a 16x16 A fragment and a 16x8 B fragment (b0, b1).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Fragment addresses in a swizzled tile of D-wide rows, for this lane:
+//  a_at: A operand, rows m0.. (16), k-chunk kc (16 columns from 8*kc);
+//  b_at: B operand stored [n][k] (x4: n-tiles n0.. and n0+8..), k-chunk kc;
+//  bt_at: B operand stored [k][n] (transposing x4: rows k0..k0+15, n-chunk nc, nc+1).
+template <int D>
+__device__ __forceinline__ const bf16* a_at(const bf16* t, int m0, int kc, int lane) {
+  return t + swz<D>(m0 + (lane & 15), kc + (lane >> 4));
+}
+template <int D>
+__device__ __forceinline__ const bf16* b_at(const bf16* t, int n0, int kc, int lane) {
+  return t + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), kc + ((lane >> 3) & 1));
+}
+template <int D>
+__device__ __forceinline__ const bf16* bt_at(const bf16* t, int k0, int nc, int lane) {
+  return t + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3), nc + (lane >> 4));
+}
+
+// The first set bit >= t of a bitmap of nwords words, or -1.
+__device__ __forceinline__ int next_tile(const unsigned* vis, int nwords, int t) {
+  for (int w = t >> 5; w < nwords; ++w) {
+    unsigned bits = vis[w];
+    if (w == (t >> 5)) bits &= ~0u << (t & 31);
+    if (bits) return (w << 5) + __ffs(bits) - 1;
+  }
+  return -1;
+}
+
+__device__ __forceinline__ int warp_max_int(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ int warp_min_int(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Offset of stacked row f = i·G + g (position i, head kvh·G + g) in a
+// (B, S, Hq, D) tensor: a group's heads are adjacent at each position.
+__device__ __forceinline__ size_t row_off(int b, int f, int S, int Hq, int G, int kvh, int D) {
+  return (((size_t)b * S + f / G) * Hq + kvh * G + f % G) * D;
+}
+
+template <int D>
+size_t dq_smem_bytes(int T_len) {
+  const int nwords = ((T_len + DQ_BK - 1) / DQ_BK + 31) / 32;
+  return (size_t)2 * DQ_ROWS * D * 2    // Q, dO
+         + (size_t)2 * 2 * DQ_BK * D * 2  // K, V: two stages
+         + 2 * DQ_BK * 4                  // key positions: two stages
+         + nwords * 4 + 4;                // visible key tiles, qmax
+}
+
+template <int D>
+size_t dkv_smem_bytes(int S, int G) {
+  const int nwords = ((S * G + KV_BQ - 1) / KV_BQ + 31) / 32;
+  return (size_t)2 * KV_BK * D * 2       // K, V
+         + (size_t)2 * 2 * KV_BQ * D * 2  // Q, dO: two stages (the dk/dv sum at the end)
+         + 2 * 3 * KV_BQ * 4              // L, Dr, positions: two stages
+         + nwords * 4 + 4;                // visible query tiles, kmin
+}
+
+// dq for DQ_ROWS stacked rows of one kv head's group: every K/V tile loaded
+// serves the group's G query heads.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dq, int S, int T_len, int Hq,
+          int Hkv, long long kv_bstride, float scale) {
+  constexpr int CPR = D / 8;
+  const int G = Hq / Hkv, nrows = S * G;
+  const int f0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;  // the rows with most keys first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwords = ((T_len + DQ_BK - 1) / DQ_BK + 31) / 32;
+
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tc_smem);
+  bf16* do_s = q_s + DQ_ROWS * D;
+  bf16* kv_s = do_s + DQ_ROWS * D;  // [stage][K, V][DQ_BK * D]
+  int* kpos_s = reinterpret_cast<int*>(kv_s + 2 * 2 * DQ_BK * D);  // [stage][DQ_BK]
+  unsigned* vis = reinterpret_cast<unsigned*>(kpos_s + 2 * DQ_BK);
+  int* qmax_s = reinterpret_cast<int*>(vis + nwords);
+
+  for (int i = tid; i < DQ_ROWS * CPR; i += kThreads) {
+    const int r = i / CPR, c = i % CPR, f = f0 + r;
+    const bool ok = f < nrows;
+    const size_t off = ok ? row_off(b, f, S, Hq, G, kvh, D) + c * 8 : 0;
+    cp_async16(q_s + swz<D>(r, c), q + off, ok);
+    cp_async16(do_s + swz<D>(r, c), dout + off, ok);
+  }
+  cp_async_commit();
+  for (int i = tid; i < nwords; i += kThreads) vis[i] = 0u;
+  if (tid == 0) *qmax_s = INT_MIN;
+
+  // this thread's two rows of the warp's 16: lane/4 and lane/4 + 8
+  float nL[2], Dr[2];
+  int qp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + 16 * warp + (lane >> 2) + 8 * h;
+    const bool ok = f < nrows;
+    const int i = ok ? f / G : 0;
+    const size_t lr = ((size_t)b * Hq + kvh * G + (ok ? f % G : 0)) * S + i;
+    qp[h] = ok ? q_pos[(size_t)b * S + i] : INT_MIN;
+    nL[h] = ok ? -lse[lr] * kLog2e : 0.f;
+    Dr[h] = ok ? delta[lr] : 0.f;
+  }
+  __syncthreads();
+  const int wmax = warp_max_int(max(qp[0], qp[1]));
+  if (lane == 0) atomicMax(qmax_s, wmax);
+  __syncthreads();
+  const int qmax = *qmax_s;
+  // causal tile skipping: the key tiles holding a key some row sees
+  const int* kp = kv_pos + (size_t)b * kv_bstride;
+  for (int t = warp; t * DQ_BK < T_len; t += kWarps) {
+    bool seen = false;
+    for (int j = t * DQ_BK + lane; j < min(T_len, (t + 1) * DQ_BK); j += 32) seen |= kp[j] <= qmax;
+    if (__any_sync(0xffffffffu, seen) && lane == 0) atomicOr(&vis[t >> 5], 1u << (t & 31));
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * DQ_BK;
+    bf16* ks = kv_s + stage * 2 * DQ_BK * D;
+    bf16* vs = ks + DQ_BK * D;
+    for (int i = tid; i < DQ_BK * CPR; i += kThreads) {
+      const int r = i / CPR, c = i % CPR, j = k0 + r;
+      const bool ok = j < T_len;
+      const size_t off = ok ? (((size_t)b * T_len + j) * Hkv + kvh) * D + c * 8 : 0;
+      cp_async16(ks + swz<D>(r, c), k + off, ok);
+      cp_async16(vs + swz<D>(r, c), v + off, ok);
+    }
+    for (int i = tid; i < DQ_BK; i += kThreads)
+      cp_async4(kpos_s + stage * DQ_BK + i, kp + (k0 + i < T_len ? k0 + i : 0), k0 + i < T_len);
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl = scale * kLog2e;
+  const int m0 = 16 * warp;
+
+  int cur = next_tile(vis, nwords, 0), stage = 0;
+  if (cur >= 0) load_kv(cur, 0);
+  cp_async_commit();
+  while (cur >= 0) {
+    const int nxt = next_tile(vis, nwords, cur + 1);
+    if (nxt >= 0) load_kv(nxt, stage ^ 1);  // prefetch: overlaps this tile's math
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks = kv_s + stage * 2 * DQ_BK * D;
+    const bf16* vs = ks + DQ_BK * D;
+    const int* kps = kpos_s + stage * DQ_BK;
+    const int k0 = cur * DQ_BK;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows x 64 keys a warp
+    float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < DQ_BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, a_at<D>(q_s, m0, 2 * kk, lane));
+      ldsm_x4(ao, a_at<D>(do_s, m0, 2 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < DQ_BK / 16; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, b_at<D>(ks, 16 * np, 2 * kk, lane));
+        ldsm_x4(bv, b_at<D>(vs, 16 * np, 2 * kk, lane));
+        mma(s[2 * np], aq, bk[0], bk[1]);
+        mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * np], ao, bv[0], bv[1]);
+        mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // p = exp(s·scale − L) where visible, dS = p (dP − Dr), rounded to bf16
+    // (as the JAX kernel rounds ds) into the A operand of dS·K
+    uint32_t ads[DQ_BK / 16][4];
+#pragma unroll
+    for (int n = 0; n < DQ_BK / 8; ++n) {
+      float d4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, j = n * 8 + 2 * (lane & 3) + (e & 1);
+        const bool ok = k0 + j < T_len && kps[j] <= qp[h];
+        const float p = ok ? exp2_approx(fmaf(s[n][e], sl, nL[h])) : 0.f;
+        d4[e] = p * (dp[n][e] - Dr[h]);
+      }
+      ads[n >> 1][(n & 1) * 2] = pack_bf16(d4[0], d4[1]);
+      ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d4[2], d4[3]);
+    }
+    // dq += dS·K
+#pragma unroll
+    for (int kt = 0; kt < DQ_BK / 16; ++kt)
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, bt_at<D>(ks, 16 * kt, 2 * dn, lane));
+        mma(acc[2 * dn], ads[kt], bk[0], bk[1]);
+        mma(acc[2 * dn + 1], ads[kt], bk[2], bk[3]);
+      }
+    __syncthreads();  // the stage is read: the next prefetch may overwrite it
+    stage ^= 1;
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + m0 + (lane >> 2) + 8 * h;
+    if (f >= nrows) continue;
+    bf16* row = dq + row_off(b, f, S, Hq, G, kvh, D) + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// dk and dv for KV_BK keys of one kv head, summed over the group's heads:
+// the block walks stacked-row tiles (positions x the group's heads), so the
+// GQA sum is part of each product.  Warp w owns keys 16·(w%KV_KW).. and the
+// stacked rows 32·(w/KV_KW).. of every tile; the two halves add at the end.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+           const bf16* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+           int S, int T_len, int Hq, int Hkv, long long kv_bstride, float scale) {
+  constexpr int CPR = D / 8;
+  const int G = Hq / Hkv, nrows = S * G;
+  const int k0 = blockIdx.x * KV_BK, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kw = warp % KV_KW, qh = warp / KV_KW;
+  const int nwords = ((nrows + KV_BQ - 1) / KV_BQ + 31) / 32;
+
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(tc_smem);
+  bf16* v_s = k_s + KV_BK * D;
+  bf16* st = v_s + KV_BK * D;  // [stage][Q, dO][KV_BQ * D]
+  float* l_s = reinterpret_cast<float*>(st + 2 * 2 * KV_BQ * D);  // [stage][KV_BQ]
+  float* dr_s = l_s + 2 * KV_BQ;
+  int* qp_s = reinterpret_cast<int*>(dr_s + 2 * KV_BQ);
+  unsigned* vis = reinterpret_cast<unsigned*>(qp_s + 2 * KV_BQ);
+  int* kmin_s = reinterpret_cast<int*>(vis + nwords);
+
+  const size_t krow = (size_t)Hkv * D;
+  const size_t koff = (((size_t)b * T_len + k0) * Hkv + kvh) * D;
+  for (int i = tid; i < KV_BK * CPR; i += kThreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = k0 + r < T_len;
+    const size_t off = ok ? koff + r * krow + c * 8 : 0;
+    cp_async16(k_s + swz<D>(r, c), k + off, ok);
+    cp_async16(v_s + swz<D>(r, c), v + off, ok);
+  }
+  cp_async_commit();
+  for (int i = tid; i < nwords; i += kThreads) vis[i] = 0u;
+  if (tid == 0) *kmin_s = INT_MAX;
+
+  // this thread's two keys of the warp's 16: lane/4 and lane/4 + 8
+  const int* kp = kv_pos + (size_t)b * kv_bstride;
+  int kpj[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = k0 + 16 * kw + (lane >> 2) + 8 * h;
+    kpj[h] = j < T_len ? kp[j] : INT_MAX;
+  }
+  __syncthreads();
+  const int wmin = warp_min_int(min(kpj[0], kpj[1]));
+  if (lane == 0) atomicMin(kmin_s, wmin);
+  __syncthreads();
+  const int kmin = *kmin_s;
+  // causal tile skipping: the stacked-row tiles holding a row that sees a key
+  for (int t = warp; t * KV_BQ < nrows; t += kWarps) {
+    const int i1 = min(nrows, (t + 1) * KV_BQ) - 1;  // the tile's last stacked row
+    bool seen = false;
+    for (int i = t * KV_BQ / G + lane; i <= i1 / G; i += 32) seen |= q_pos[(size_t)b * S + i] >= kmin;
+    if (__any_sync(0xffffffffu, seen) && lane == 0) atomicOr(&vis[t >> 5], 1u << (t & 31));
+  }
+  __syncthreads();
+
+  auto load_q = [&](int t, int stage) {
+    const int f0 = t * KV_BQ;
+    bf16* qs = st + stage * 2 * KV_BQ * D;
+    bf16* os = qs + KV_BQ * D;
+    for (int i = tid; i < KV_BQ * CPR; i += kThreads) {
+      const int r = i / CPR, c = i % CPR, f = f0 + r;
+      const bool ok = f < nrows;
+      const size_t off = ok ? row_off(b, f, S, Hq, G, kvh, D) + c * 8 : 0;
+      cp_async16(qs + swz<D>(r, c), q + off, ok);
+      cp_async16(os + swz<D>(r, c), dout + off, ok);
+    }
+    for (int r = tid; r < KV_BQ; r += kThreads) {
+      const int f = f0 + r;
+      const bool ok = f < nrows;
+      const int i = ok ? f / G : 0;
+      const size_t lr = ((size_t)b * Hq + kvh * G + (ok ? f % G : 0)) * S + i;
+      cp_async4(l_s + stage * KV_BQ + r, lse + lr, ok);
+      cp_async4(dr_s + stage * KV_BQ + r, delta + lr, ok);
+      cp_async4(qp_s + stage * KV_BQ + r, q_pos + (size_t)b * S + i, ok);
+    }
+  };
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float sl = scale * kLog2e;
+  const int m0 = 16 * kw, c0 = 32 * qh;
+
+  int cur = next_tile(vis, nwords, 0), stage = 0;
+  if (cur >= 0) load_q(cur, 0);
+  cp_async_commit();
+  while (cur >= 0) {
+    const int nxt = next_tile(vis, nwords, cur + 1);
+    if (nxt >= 0) load_q(nxt, stage ^ 1);  // prefetch Q, dO, L, Dr, positions
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qs = st + stage * 2 * KV_BQ * D;
+    const bf16* os = qs + KV_BQ * D;
+    const float* ls = l_s + stage * KV_BQ;
+    const float* drs = dr_s + stage * KV_BQ;
+    const int* qps = qp_s + stage * KV_BQ;
+    const int f0 = cur * KV_BQ;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys x 32 stacked rows a warp
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, a_at<D>(k_s, m0, 2 * kk, lane));
+      ldsm_x4(av, a_at<D>(v_s, m0, 2 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, b_at<D>(qs, c0 + 16 * np, 2 * kk, lane));
+        ldsm_x4(bo, b_at<D>(os, c0 + 16 * np, 2 * kk, lane));
+        mma(s[2 * np], ak, bq[0], bq[1]);
+        mma(s[2 * np + 1], ak, bq[2], bq[3]);
+        mma(dp[2 * np], av, bo[0], bo[1]);
+        mma(dp[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+    // Pᵀ and dSᵀ, rounded to bf16 (as the JAX kernel rounds p and ds) into
+    // the A operands of Pᵀ·dO and dSᵀ·Q
+    uint32_t ap[2][4], ads[2][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float p4[4], d4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, r = c0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        const bool ok = f0 + r < nrows && kpj[h] <= qps[r];
+        const float p = ok ? exp2_approx(fmaf(s[n][e], sl, -ls[r] * kLog2e)) : 0.f;
+        p4[e] = p;
+        d4[e] = p * (dp[n][e] - drs[r]);
+      }
+      ap[n >> 1][(n & 1) * 2] = pack_bf16(p4[0], p4[1]);
+      ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p4[2], p4[3]);
+      ads[n >> 1][(n & 1) * 2] = pack_bf16(d4[0], d4[1]);
+      ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d4[2], d4[3]);
+    }
+    // dv += Pᵀ·dO and dk += dSᵀ·Q
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, bt_at<D>(os, c0 + 16 * kt, 2 * dn, lane));
+        ldsm_x4_t(bq, bt_at<D>(qs, c0 + 16 * kt, 2 * dn, lane));
+        mma(dv_acc[2 * dn], ap[kt], bo[0], bo[1]);
+        mma(dv_acc[2 * dn + 1], ap[kt], bo[2], bo[3]);
+        mma(dk_acc[2 * dn], ads[kt], bq[0], bq[1]);
+        mma(dk_acc[2 * dn + 1], ads[kt], bq[2], bq[3]);
+      }
+    __syncthreads();  // the stage is read: the next prefetch may overwrite it
+    stage ^= 1;
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the two halves of the stacked rows: the second half's warps hand their
+  // sums to the first half's through shared memory (the Q/dO stages), which
+  // add and write once
+  float* red = reinterpret_cast<float*>(st);  // [dk, dv][KV_BK][D]
+  if (qh == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = (m0 + (lane >> 2) + 8 * (e >> 1)) * D + 8 * n + 2 * (lane & 3) + (e & 1);
+        red[idx] = dk_acc[n][e];
+        red[KV_BK * D + idx] = dv_acc[n][e];
+      }
+  }
+  __syncthreads();
+  if (qh == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + (lane >> 2) + 8 * h;
+      if (k0 + r >= T_len) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * (lane & 3), idx = r * D + col;
+        const size_t o = koff + r * krow + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(
+            (dk_acc[n][2 * h] + red[idx]) * scale, (dk_acc[n][2 * h + 1] + red[idx + 1]) * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o) =
+            __floats2bfloat162_rn(dv_acc[n][2 * h] + red[KV_BK * D + idx],
+                                  dv_acc[n][2 * h + 1] + red[KV_BK * D + idx + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 struct Args {
   const void *q, *k, *v, *q_pos, *kv_pos, *dout, *lse, *delta;
   void *out0, *out1;  // dq, or dk and dv
@@ -437,9 +982,58 @@ cudaError_t dispatch_dim(int D, const Args& a) {
   }
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  const size_t smem = tc::dq_smem_bytes<D>(a.T_len);
+  auto kernel = tc::dq_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int G = a.Hq / a.Hkv;
+  const dim3 grid((a.S * G + tc::DQ_ROWS - 1) / tc::DQ_ROWS, a.Hkv, a.B);
+  using T = __nv_bfloat16;
+  kernel<<<grid, tc::kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), a.S, a.T_len, a.Hq, a.Hkv,
+      a.kv_bstride, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  const size_t smem = tc::dkv_smem_bytes<D>(a.S, a.Hq / a.Hkv);
+  auto kernel = tc::dkv_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T_len + tc::KV_BK - 1) / tc::KV_BK, a.Hkv, a.B);
+  using T = __nv_bfloat16;
+  kernel<<<grid, tc::kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1),
+      a.S, a.T_len, a.Hq, a.Hkv, a.kv_bstride, a.scale);
+  return cudaGetLastError();
+}
+
+template <bool DQ>
+cudaError_t dispatch_dim_tc(int D, const Args& a) {
+  switch (D) {
+    case 16: return DQ ? launch_dq_tc<16>(a) : launch_dkv_tc<16>(a);
+    case 32: return DQ ? launch_dq_tc<32>(a) : launch_dkv_tc<32>(a);
+    case 64: return DQ ? launch_dq_tc<64>(a) : launch_dkv_tc<64>(a);
+    case 128: return DQ ? launch_dq_tc<128>(a) : launch_dkv_tc<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The dtype route: bf16 on the tensor cores, float32 on the CUDA cores.
 template <bool DQ>
 int dispatch(int D, int dtype, const Args& a) {
-  if (dtype == csm::kBFloat16) return (int)dispatch_dim<__nv_bfloat16, DQ>(D, a);
+  if (dtype == csm::kBFloat16) return (int)dispatch_dim_tc<DQ>(D, a);
   if (dtype == csm::kFloat32) return (int)dispatch_dim<float, DQ>(D, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,11 @@ the JAX package's ``ops/flash_attention.py``:
   * ``flash_attention_bwd_dkv`` → the same source (``_dkv_kernel``): dk and
     dv, summed over each kv head's query heads inside the kernel.
 
+The backward kernels take bf16 on the tensor cores and float32 on the CUDA
+cores.  Like the JAX kernels, they round p and ds to the operands' dtype
+before the products dq = ds·K, dk = dsᵀ·Q and dv = pᵀ·dO; the plain
+versions do the same, which changes nothing in float32.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version.  There is no fallback between the two and no
 switch to another backward.  The row sums Dr = Σ_d dO·O (minus the LSE
@@ -85,24 +90,34 @@ def _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta):
     return p, p * (dp - rows(delta))
 
 
+def _rounded(x, dtype):
+    """x rounded to the operands' dtype, back in float32, as the JAX kernels
+    round p and ds before the products that take them (a no-op in
+    float32)."""
+    return x.to(dtype).float()
+
+
 def flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta):
-    """The dq kernel's function: dq = scale · ds·K, in q's dtype."""
+    """The dq kernel's function: dq = scale · ds·K, ds rounded to the
+    operands' dtype first, in q's dtype."""
     B, S, Hq, D = q.shape
     _, ds = _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta)
-    dq = torch.einsum("bskgt,btkd->bskgd", ds, k.float()) * (1.0 / math.sqrt(D))
+    dq = torch.einsum("bskgt,btkd->bskgd", _rounded(ds, q.dtype), k.float()) * (1.0 / math.sqrt(D))
     return dq.reshape(B, S, Hq, D).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, q_pos, kv_pos, g, lse, delta):
-    """The dk/dv kernel's function: dk = scale · dsᵀ·Q and dv = pᵀ·dO,
-    summed over each kv head's query heads, in k's dtype."""
+    """The dk/dv kernel's function: dk = scale · dsᵀ·Q and dv = pᵀ·dO, p and
+    ds rounded to the operands' dtype first, summed over each kv head's
+    query heads, in k's dtype."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     p, ds = _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta)
     qf = q.float().reshape(B, S, Hkv, G, D)
-    dk = torch.einsum("bskgt,bskgd->btkd", ds, qf) * (1.0 / math.sqrt(D))
-    dv = torch.einsum("bskgt,bskgd->btkd", p, g.float().reshape(B, S, Hkv, G, D))
+    dk = torch.einsum("bskgt,bskgd->btkd", _rounded(ds, q.dtype), qf) * (1.0 / math.sqrt(D))
+    dv = torch.einsum("bskgt,bskgd->btkd", _rounded(p, q.dtype),
+                      g.float().reshape(B, S, Hkv, G, D))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -117,8 +132,9 @@ def bwd_delta(out, g, g_lse=None):
 
 
 def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, g, g_lse=None):
-    """The two backward kernels' function in plain PyTorch, float32 inside:
-    (dq in q's dtype, dk and dv in k's dtype)."""
+    """The two backward kernels' function in plain PyTorch, float32 inside
+    with p and ds rounded to the operands' dtype before the dq, dk and dv
+    products: (dq in q's dtype, dk and dv in k's dtype)."""
     delta = bwd_delta(out, g, g_lse)
     dq = flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta)
     return (dq, *flash_bwd_dkv_plain(q, k, v, q_pos, kv_pos, g, lse, delta))

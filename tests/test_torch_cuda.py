@@ -6,8 +6,10 @@ PyTorch (``python -m pytest --noconftest tests/test_torch_cuda.py``, as the
 README says).  Float32 agrees to 1e-5 (one rounding of float32 sums); bf16
 to one bf16 ulp (rtol 2**-7, atol 1e-4 for outputs near zero), since kernel
 and plain version both accumulate in float32 and round the output once.
-The int4 matmul's atol scales with its output: 2**-8 of the plain output's
-RMS in bf16, 1e-5 of it in float32.
+The int4 matmul's and the matvec's atol scale with their output: 2**-8 of
+the plain output's RMS in bf16, 1e-5 of it in float32.  The backward kernels
+take bf16 on the tensor cores, rounding p and ds to bf16 as their plain
+version does, and float32 on the CUDA cores.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from csm_torch.ops import decode_attention as tdec
 from csm_torch.ops import flash_attention as tfa
 from csm_torch.ops import int4_matmul as tint4
+from csm_torch.ops import matvec as tmv
 from csm_torch.utils.quantize import quantize_weight_int4
 
 PAD = 1 << 28
@@ -217,3 +220,59 @@ def test_flash_autograd_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
     assert all(torch.isfinite(x.float()).all() for x in grads)
+
+
+@pytest.mark.parametrize("dtype,rel_atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                                 (torch.bfloat16, 2**-8, 2**-7)])
+@pytest.mark.parametrize("K,N", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+                                 (8192, 384), (37, 1000), (300, 8)])
+def test_matvec_kernel_matches_plain(cuda, dtype, rel_atol, rtol, K, N):
+    """The CSM-1B backbone's four projections, a narrow N, a ragged K and
+    N = 8 (one slab); every slab width the kernel picks."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K**0.5).astype(np.float32)).to(cuda, dtype)
+    n = tmv.launches
+    got = tmv.matvec(x, w)
+    torch.cuda.synchronize()
+    assert tmv.launches == n + 1 and got.dtype == dtype and got.shape == (1, N)
+    want = tmv.matvec_plain(x, w)
+    rms = want.float().pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=rel_atol * rms, rtol=rtol)
+
+
+def test_matvec_kernel_refuses_what_it_cannot_take(cuda):
+    x, w = torch.ones(1, 64, device=cuda), torch.ones(64, 16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tmv.matvec(x, w[:, :12].contiguous())
+    with pytest.raises(ValueError, match="on"):
+        tmv.matvec(x, w.cpu())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tmv.matvec(torch.ones(1, 65, device=cuda)[:, 1:], w)
+
+
+def _bwd_check(S, T, Hq, Hkv, D, dtype, rel_atol, rtol, B=2):
+    q, k, v, q_pos, kv_pos, out, lse, g, _ = _bwd_inputs(S, T, Hq, Hkv, D, 1, "cuda", dtype, B=B)
+    delta = tfa.bwd_delta(out, g)
+    got = (tfa.flash_attention_bwd_dq(q, k, v, q_pos, kv_pos, g, lse, delta),
+           *tfa.flash_attention_bwd_dkv(q, k, v, q_pos, kv_pos, g, lse, delta))
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rms = b.float().pow(2).mean().sqrt().item()
+        assert rms > 0, name
+        torch.testing.assert_close(a.float(), b.float(), atol=rel_atol * rms, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_bwd_bf16_long_d128(cuda):
+    """bf16 on the tensor cores at D = 128 and S = T = 2048: 32 key tiles
+    and 128 stacked-row tiles a kv head, causal skipping over most of them."""
+    _bwd_check(2048, 2048, 8, 2, 128, torch.bfloat16, 2**-8, 2**-7, B=1)
+
+
+def test_flash_bwd_float32_stays_on_cuda_cores(cuda):
+    """float32 at the training shape's heads agrees with the plain version to
+    1e-5 of each gradient's RMS: the CUDA-core route.  Inputs rounded to bf16
+    (or TF32) for a tensor core would miss by ~1e-3."""
+    _bwd_check(512, 512, 32, 8, 64, torch.float32, 1e-5, 1e-5)

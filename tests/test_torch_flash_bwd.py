@@ -5,11 +5,13 @@ CPU, and the port's autograd Function held against autograd through plain
 attention.  The CUDA kernels themselves are held against the plain version
 on a card (tests/test_torch_cuda.py).
 
-Float32 throughout; tolerance 2e-5, float32 rounding of sums over a few
-hundred keys (as tests/test_torch_kernels.py).  Every query row sees at
-least one key: the JAX forward gives a row with no visible key, inside a
-visited key tile, L = -1e30 (its finite NEG_INF), and its backward is then
-not defined for that row, while the port gives L = 1e30 and p = 0.
+Float32, tolerance 2e-5: float32 rounding of sums over a few hundred keys
+(as tests/test_torch_kernels.py); and the plain version against the Pallas
+backward in bf16, where both round p and ds to bf16 before the products.
+Every query row sees at least one key: the JAX forward gives a row with no
+visible key, inside a visited key tile, L = -1e30 (its finite NEG_INF), and
+its backward is then not defined for that row, while the port gives
+L = 1e30 and p = 0.
 Training rows never are empty (positions are arange(T)).
 """
 
@@ -65,11 +67,14 @@ def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("S,T,Hkv,D,per_row_kv", [
+BWD_SHAPES = [
     (256, 256, 1, 64, False),
     (300, 300, 2, 16, False),  # ragged: S, T not multiples of a tile
     (200, 300, 2, 64, True),   # S < T, (B, T) kv_pos with dead slots
-])
+]
+
+
+@pytest.mark.parametrize("S,T,Hkv,D,per_row_kv", BWD_SHAPES)
 def test_bwd_plain_matches_jax_kernels(interpret_pallas, S, T, Hkv, D, per_row_kv):
     q, k, v, g, q_pos, kv_pos = bwd_inputs(S, T, Hkv, D, per_row_kv)
     jq, jk, jv, jg, jqp, jkp = map(jnp.asarray, (q, k, v, g, q_pos, kv_pos))
@@ -79,6 +84,31 @@ def test_bwd_plain_matches_jax_kernels(interpret_pallas, S, T, Hkv, D, per_row_k
         *map(torch.from_numpy, (q, k, v, q_pos, kv_pos, np.array(out), np.array(L), g)))
     for a, b in zip(got, want):
         _close(a, b)
+
+
+@pytest.mark.parametrize("S,T,Hkv,D,per_row_kv", BWD_SHAPES)
+def test_bwd_plain_matches_jax_kernels_bf16(interpret_pallas, S, T, Hkv, D, per_row_kv):
+    """bf16: the same numpy inputs cast to bf16 on both sides, the JAX
+    forward's out and L fed to both backwards.  Both round p and ds to bf16
+    before the dq, dk and dv products and sum in float32, in other orders,
+    so a gradient element differs only where a sum lands on the other side
+    of a bf16 rounding boundary: by one bf16 ulp (rtol 2**-7; atol 2**-8 of
+    the gradient's RMS for elements near zero), in under 1 % of the elements
+    (0.01-0.3 % measured; without the rounding of p and ds ~40 % differ)."""
+    q, k, v, g, q_pos, kv_pos = bwd_inputs(S, T, Hkv, D, per_row_kv)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    jqp, jkp = jnp.asarray(q_pos), jnp.asarray(kv_pos)
+    out, L = jfa._flash_fwd(jq, jk, jv, jqp, jkp, 256)
+    want = jfa._flash_bwd_pallas(jq, jk, jv, jqp, jkp, out, L, jg, 256)
+    bf = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)  # noqa: E731
+    got = tfa.flash_attention_bwd_plain(bf(q), bf(k), bf(v), torch.from_numpy(q_pos),
+                                        torch.from_numpy(kv_pos), bf(out),
+                                        torch.from_numpy(np.array(L)), bf(g))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        np.testing.assert_allclose(a, b, rtol=2**-7, atol=2**-8 * np.sqrt(np.mean(b**2)))
+        assert np.mean(a != b) < 0.01
 
 
 def test_bwd_plain_with_lse_cotangent_matches_jax(interpret_pallas):
