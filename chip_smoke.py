@@ -11,9 +11,11 @@ is wrong:
      parallel) into build/kernels/;
   3. each kernel is held against its plain PyTorch version in bf16 at the
      shapes of the main path (the flash forward at the prefill's and at the
-     training's, the matvec at the CSM-1B backbone's four projections), and
-     timed beside that plain version, one PyTorch library call computing the
-     same function, and its bound;
+     training's, with a dropped key tile shown to fail its tolerance; the
+     int4 matmul at every CSM-1B and 8B projection, with its launch-weighted
+     time of a frame; the matvec at the CSM-1B backbone's four projections),
+     and timed beside that plain version, one PyTorch library call computing
+     the same function, and its bound;
   4. the main path runs at CSM-1B width on random weights: Generator.generate
      (prompt bucket 64), generate (bucket 256: prefill through the flash
      kernel) and generate_batch of two prompts, with the kernels' launch
@@ -71,6 +73,10 @@ BF16_FLOPS = 989e12
 # T=2048), so a kernel that drops one 64-key tile (~5e-3) fails this.
 BF16_ATOL, BF16_RTOL = 1e-4, 2**-7
 LSE_ATOL = 1e-3  # float32 log-sum-exp of the same bf16 scores
+# bf16 flash forward: on top of one bf16 ulp (BF16_ATOL + BF16_RTOL·|plain|),
+# each O element has an allowance for p rounding apart in kernel and plain
+# version (the kernel rounds against the running row max):
+# csm_torch.ops.flash_attention.fwd_rounding_allowance, derived there.
 # bf16 backward: dq sums ds·k over up to T keys, dk/dv over the group's G·S
 # rows; kernel (tensor cores) and plain version both round p and ds to bf16
 # before those products, accumulate in float32 in other orders and round
@@ -207,6 +213,38 @@ def sdpa_flash(q, k, v, q_pos, kv_pos):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True)
 
 
+def fwd_check(name, o, lse, q, k, v, q_pos, kv_pos):
+    """The forward kernel's O and L against the plain version in bf16, with
+    the tolerance above; then the plain O with one 64-key tile hidden from
+    every row (its kv_pos set to PAD_POS) must fail that tolerance.  Logs
+    both factors; returns max |kernel - plain| of O."""
+    import torch
+
+    from csm_torch.models.csm import PAD_POS
+    from csm_torch.ops import flash_attention as fa
+
+    want, lse_p = fa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    tol = fa.fwd_rounding_allowance(q, k, v, q_pos, kv_pos)
+    tol.add_(BF16_ATOL + BF16_RTOL * want.float().abs())
+    err = (o.float() - want.float()).abs()
+    used = (err / tol).max().item()
+    if not torch.isfinite(o.float()).all() or used > 1:
+        raise AssertionError(f"{name} O: max |kernel - plain| = {err.max().item():.3e}, "
+                             f"{used:.2f}x the tolerance")
+    check_close(f"{name} L", lse, lse_p, LSE_ATOL, 0.0)
+    kv = kv_pos.clone()
+    j0 = 64 * (k.shape[1] // 128)
+    kv[..., j0 : j0 + 64] = PAD_POS
+    drop = fa.flash_attention_plain(q, k, v, q_pos, kv)[0]
+    moved = ((drop.float() - want.float()).abs() / tol).max().item()
+    if not moved > 1:
+        raise AssertionError(f"{name}: dropping a key tile stays within the tolerance "
+                             f"({moved:.2f}x)")
+    log(f"{name}: max |kernel - plain| O {err.max().item():.2e} ({used:.2f} of the tolerance); "
+        f"dropping one 64-key tile moves O {moved:.0f}x the tolerance")
+    return err.max().item()
+
+
 def bwd_case(B, S, T, Hq, Hkv, D, gen, dev, kv_rows=1, with_lse=False):
     """bf16 backward inputs: the queries are the last S of T positions; with
     kv_rows = 2 each row's (B, T) kv_pos marks 7·(b+1) slots dead (PAD_POS),
@@ -233,11 +271,8 @@ def bwd_case(B, S, T, Hq, Hkv, D, gen, dev, kv_rows=1, with_lse=False):
             kv_pos[b, dead] = PAD_POS
     out, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
     torch.cuda.synchronize()
-    out_p, lse_p = fa.flash_attention_plain(q, k, v, q_pos, kv_pos)
     name = f"flash fwd B={B} S={S} T={T} kv_pos {tuple(kv_pos.shape)}"
-    fwd_err = check_close(f"{name} O", out, out_p, BF16_ATOL, BF16_RTOL)
-    check_close(f"{name} L", lse, lse_p, LSE_ATOL, 0.0)
-    del out_p, lse_p
+    fwd_err = fwd_check(name, out, lse, q, k, v, q_pos, kv_pos)
     g_lse = torch.randn(B, Hq, S, generator=gen, device=dev) if with_lse else None
     return (q, k, v, q_pos, kv_pos, g, lse, fa.bwd_delta(out, g, g_lse)), fwd_err
 
@@ -423,9 +458,7 @@ def phase_kernels(dev, flush, details):
         q, k, v, q_pos, kv_pos = flash_case(B, S, S + 25, 32, 8, 64, gen, dev)
         o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
         torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_attention_plain(q, k, v, q_pos, kv_pos)
-        err = check_close(f"flash O B={B} S={S}", o, o_p, BF16_ATOL, BF16_RTOL)
-        check_close(f"flash L B={B} S={S}", lse, lse_p, LSE_ATOL, 0.0)
+        err = fwd_check(f"flash fwd B={B} S={S} T={S + 25}", o, lse, q, k, v, q_pos, kv_pos)
         pad = q_pos == (1 << 28)
         if pad.any() and not o[pad].abs().amax() > 0:
             raise AssertionError("PAD_POS rows attend every slot: their output is not zero")
@@ -445,14 +478,21 @@ def phase_kernels(dev, flush, details):
         log(f"{r['kernel']:<20} {json.dumps(r['shape']):<58} {r['ms']:8.4f} {r['plain_ms']:8.4f} "
             f"{r['library_ms']:8.4f} {r['bound_ms']:8.4f} {r['max_abs_err']:.2e}")
 
-    def record(name, source, replaces, main_shape):
+    def record(name, source, replaces, main_shape, **extra):
         mine = [r for r in rows if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == main_shape)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": 0, "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+                "bound_by": main["bound_by"], "library_ms": main["library_ms"], **extra}
 
+    from csm_torch import csm_1b_args
+
+    frame_launches, frame_ms = int4_frame([r for r in rows if r["kernel"] == "int4_matmul"],
+                                          csm_1b_args())
+    details["int4_frame"] = {"launches": frame_launches, "ms": frame_ms}
+    log(f"int4 kernel time of one CSM-1B frame at B=1, launch-weighted from the rows above: "
+        f"{frame_launches} launches, {frame_ms:.4f} ms")
     return [
         record("decode_attention", "csm_torch/csrc/decode_attention.cu",
                "csm_tpu/ops/decode_attention.py:55", decode_shapes[0]),
@@ -460,7 +500,8 @@ def phase_kernels(dev, flush, details):
                "csm_tpu/ops/flash_attention.py:117",
                dict(B=1, S=256, T=281, Hq=32, Hkv=8, D=64)),
         record("int4_matmul", "csm_torch/csrc/int4_matmul.cu",
-               "csm_tpu/ops/int4_matmul.py:57", INT4_MAIN_SHAPE),
+               "csm_tpu/ops/int4_matmul.py:57", INT4_MAIN_SHAPE,
+               frame_ms=frame_ms, frame_launches=frame_launches),
         record("flash_attention_bwd_dq", "csm_torch/csrc/flash_attention_bwd.cu",
                "csm_tpu/ops/flash_attention.py:291", BWD_MAIN_SHAPE),
         record("flash_attention_bwd_dkv", "csm_torch/csrc/flash_attention_bwd.cu",
@@ -471,18 +512,38 @@ def phase_kernels(dev, flush, details):
 
 
 # The int4 matmul's shapes on the main path: CSM-1B backbone projections at
-# M = 1 (decode step), 2 (B=2, or the decoder's S=2 call) and 64 (bucket-64
-# prefill), the decoder's gate-up at M = 1, and the 8B flavor's MLP at M = 1.
+# M = 1 (decode step), 2 (B=2) and 64 (bucket-64 prefill), the decoder's four
+# at M = 1 and 2 (its S=2 call), and the 8B flavor's MLP at M = 1.
 INT4_SHAPES = [
     ("backbone wqkv", 2048, 3072, (1, 2, 64)),
     ("backbone wo", 2048, 2048, (1, 2, 64)),
     ("backbone w13", 2048, 16384, (1, 2, 64)),
     ("backbone w2", 8192, 2048, (1, 2, 64)),
-    ("decoder w13", 1024, 16384, (1,)),
+    ("decoder wqkv", 1024, 1536, (1, 2)),
+    ("decoder wo", 1024, 1024, (1, 2)),
+    ("decoder w13", 1024, 16384, (1, 2)),
+    ("decoder w2", 8192, 1024, (1, 2)),
     ("8B w13", 4096, 28672, (1,)),
     ("8B w2", 14336, 4096, (1,)),
 ]
 INT4_MAIN_SHAPE = dict(proj="backbone w13", M=1, K=2048, N=16384)
+
+
+def int4_frame(rows, args):
+    """The int4 kernel's launches and summed kernel ms in one CSM-1B frame at
+    B=1, from the timed rows: each backbone projection once per layer at
+    M=1; each decoder projection once per layer in each of the 31 decoder
+    calls, the first at M=2 (codebook-0 embedding and the backbone state),
+    the other 30 at M=1."""
+    ms = {(r["shape"]["proj"], r["shape"]["M"]): r["ms"] for r in rows}
+    L_bb, L_dec, calls = args.backbone.num_layers, args.decoder.num_layers, args.audio_num_codebooks - 1
+    launches, total = 0, 0.0
+    for proj in ("wqkv", "wo", "w13", "w2"):
+        for key, n in ((("backbone " + proj, 1), L_bb), (("decoder " + proj, 2), L_dec),
+                       (("decoder " + proj, 1), L_dec * (calls - 1))):
+            launches += n
+            total += n * ms[key]
+    return launches, total
 
 
 def int4_library(x, q, want):
@@ -654,13 +715,19 @@ def profile_generate(gen, details, key):
                if "CUDA" in str(getattr(e, "device_type", ""))]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    int4 = [e for e in kernels if "int4" in e.key]
+    int4_ms = sum(e.self_device_time_total for e in int4) / 1e3
     details[key] = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if busy_ms else "not measured",
         "top_kernels": [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top],
+        "int4_kernel_ms": int4_ms, "int4_launches": sum(e.count for e in int4),
     }
     log(f"{key}: generate of 10 frames {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
         f"({len(kernels)} kinds)")
+    if int4:
+        log(f"  the int4 kernel: {int4_ms:.2f} ms in {details[key]['int4_launches']} launches, "
+            f"{100 * int4_ms / busy_ms:.1f} % of the kernel time")
     for name, count, ms in details[key]["top_kernels"]:
         log(f"  {ms:9.3f} ms {count:6d}x {name}")
 

@@ -1,5 +1,6 @@
-// Shared helpers for the port's attention kernels: float conversion and
-// 16-byte vector loads of bf16 / f32 rows into float registers.
+// Shared helpers for the port's kernels: float conversion, 16-byte vector
+// loads of bf16 / f32 rows into float registers, warp reductions, the
+// once-per-size shared-memory attribute and the SM count.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,5 +54,33 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
+
+// Allow `Kernel` `bytes` of dynamic shared memory on the current device.
+// cudaFuncSetAttribute is a host call of its own, so it runs only when a
+// launch needs more than the largest size set so far on that device, not
+// on every launch.
+template <auto Kernel>
+cudaError_t ensure_smem(size_t bytes) {
+  static size_t set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (bytes <= set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) set[dev] = bytes;
+  return err;
+}
+
+// Streaming multiprocessors of the current device, read once (132 on the
+// H100 SXM if the query fails).
+inline int sm_count() {
+  static int n[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (!n[dev] && cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    n[dev] = 132;
+  return n[dev];
+}
 
 }  // namespace csm

@@ -162,8 +162,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
                    cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<D>(Hq / Hkv);
   auto kernel = decode_attention_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = csm::ensure_smem<decode_attention_kernel<T, D>>(smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

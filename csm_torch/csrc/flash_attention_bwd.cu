@@ -73,6 +73,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -413,7 +414,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,         // (B, S, Hq, D)
 // bf16 route: tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate).
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace csm::tc;
 // 4 warps a block: at D <= 64 the kernels take ~160 registers a thread, so
 // three blocks (12 warps) fit an SM where one 8-warp block would
 constexpr int kWarps = 4;
@@ -424,120 +425,6 @@ constexpr int KV_BK = 32;             // keys of a dk/dv block: 16 per warp row 
 constexpr int KV_KW = KV_BK / 16;     // warp row groups of a dk/dv block
 constexpr int KV_BQ = 64;             // stacked rows per tile of the dk/dv kernel: 32 per warp half
 static_assert(kWarps == 2 * KV_KW, "each 16 keys take two warps, one per half of a row tile");
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the SFU's ex2.approx (flushing denormal results to 0).  p is rounded
-// to bf16 before every product that takes it, far coarser than ex2's ~2 ulp;
-// exp2f's extra handling of denormal results costs time and, at the training
-// shapes on the H100, changed no gradient bit.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of 16-byte chunk c of row r in a tile of D bf16 a row.  The
-// chunk index is XOR-swizzled with the row so that the 8 rows an ldmatrix
-// (or a transposing ldmatrix) reads at one chunk column land in 8 different
-// bank groups: no bank conflicts for any D in {16, 32, 64, 128}.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
-  if constexpr (CPR >= 8) {
-    return (r * CPR + (c ^ (r & 7))) * 8;
-  } else {
-    return (r * CPR + (c ^ ((r / (8 / CPR)) & (CPR - 1)))) * 8;
-  }
-}
-
-// cp.async of 16 (or 4) bytes; an invalid source reads nothing and fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a·b for a 16x16 A fragment and a 16x8 B fragment (b0, b1).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment addresses in a swizzled tile of D-wide rows, for this lane:
-//  a_at: A operand, rows m0.. (16), k-chunk kc (16 columns from 8*kc);
-//  b_at: B operand stored [n][k] (x4: n-tiles n0.. and n0+8..), k-chunk kc;
-//  bt_at: B operand stored [k][n] (transposing x4: rows k0..k0+15, n-chunk nc, nc+1).
-template <int D>
-__device__ __forceinline__ const bf16* a_at(const bf16* t, int m0, int kc, int lane) {
-  return t + swz<D>(m0 + (lane & 15), kc + (lane >> 4));
-}
-template <int D>
-__device__ __forceinline__ const bf16* b_at(const bf16* t, int n0, int kc, int lane) {
-  return t + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), kc + ((lane >> 3) & 1));
-}
-template <int D>
-__device__ __forceinline__ const bf16* bt_at(const bf16* t, int k0, int nc, int lane) {
-  return t + swz<D>(k0 + (lane & 7) + (((lane >> 3) & 1) << 3), nc + (lane >> 4));
-}
-
-// The first set bit >= t of a bitmap of nwords words, or -1.
-__device__ __forceinline__ int next_tile(const unsigned* vis, int nwords, int t) {
-  for (int w = t >> 5; w < nwords; ++w) {
-    unsigned bits = vis[w];
-    if (w == (t >> 5)) bits &= ~0u << (t & 31);
-    if (bits) return (w << 5) + __ffs(bits) - 1;
-  }
-  return -1;
-}
-
-__device__ __forceinline__ int warp_max_int(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ int warp_min_int(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Offset of stacked row f = i·G + g (position i, head kvh·G + g) in a
-// (B, S, Hq, D) tensor: a group's heads are adjacent at each position.
-__device__ __forceinline__ size_t row_off(int b, int f, int S, int Hq, int G, int kvh, int D) {
-  return (((size_t)b * S + f / G) * Hq + kvh * G + f % G) * D;
-}
 
 template <int D>
 size_t dq_smem_bytes(int T_len) {
@@ -941,8 +828,7 @@ template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem = dq_smem_bytes<D>();
   auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = csm::ensure_smem<flash_bwd_dq_kernel<T, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
   kernel<<<grid, kThreads, smem, a.stream>>>(
@@ -958,8 +844,7 @@ template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_bytes<D>();
   auto kernel = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = csm::ensure_smem<flash_bwd_dkv_kernel<T, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T_len + BK - 1) / BK, a.Hkv, a.B);
   kernel<<<grid, kThreads, smem, a.stream>>>(
@@ -986,8 +871,7 @@ template <int D>
 cudaError_t launch_dq_tc(const Args& a) {
   const size_t smem = tc::dq_smem_bytes<D>(a.T_len);
   auto kernel = tc::dq_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = csm::ensure_smem<tc::dq_kernel<D>>(smem);
   if (err != cudaSuccess) return err;
   const int G = a.Hq / a.Hkv;
   const dim3 grid((a.S * G + tc::DQ_ROWS - 1) / tc::DQ_ROWS, a.Hkv, a.B);
@@ -1005,8 +889,7 @@ template <int D>
 cudaError_t launch_dkv_tc(const Args& a) {
   const size_t smem = tc::dkv_smem_bytes<D>(a.S, a.Hq / a.Hkv);
   auto kernel = tc::dkv_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = csm::ensure_smem<tc::dkv_kernel<D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T_len + tc::KV_BK - 1) / tc::KV_BK, a.Hkv, a.B);
   using T = __nv_bfloat16;

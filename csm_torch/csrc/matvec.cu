@@ -98,27 +98,13 @@ matvec_kernel(const T* __restrict__ x,  // (1, K)
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 template <typename T, int LPR>
 cudaError_t launch(const void* x, const void* w, void* y, int K, int N, cudaStream_t stream) {
   constexpr int NB = LPR * csm::Vec<T>::n;
   const size_t smem = kWarps * NB * sizeof(float) + (size_t)K * sizeof(T);
   auto kernel = matvec_kernel<T, LPR>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = csm::ensure_smem<matvec_kernel<T, LPR>>(smem);
+  if (err != cudaSuccess) return err;
   kernel<<<(N + NB - 1) / NB, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), K, N);
   return cudaGetLastError();
@@ -128,7 +114,7 @@ cudaError_t launch(const void* x, const void* w, void* y, int K, int N, cudaStre
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, void* y, int K, int N, cudaStream_t s) {
   constexpr int VN = csm::Vec<T>::n;
-  const long long want = 2LL * sm_count();
+  const long long want = 2LL * csm::sm_count();
   if ((N + 4 * VN - 1) / (4 * VN) >= want) return launch<T, 4>(x, w, y, K, N, s);
   if ((N + 2 * VN - 1) / (2 * VN) >= want) return launch<T, 2>(x, w, y, K, N, s);
   return launch<T, 1>(x, w, y, K, N, s);

@@ -14,10 +14,14 @@ the JAX package's ``ops/flash_attention.py``:
   * ``flash_attention_bwd_dkv`` → the same source (``_dkv_kernel``): dk and
     dv, summed over each kv head's query heads inside the kernel.
 
-The backward kernels take bf16 on the tensor cores and float32 on the CUDA
-cores.  Like the JAX kernels, they round p and ds to the operands' dtype
-before the products dq = ds·K, dk = dsᵀ·Q and dv = pᵀ·dO; the plain
-versions do the same, which changes nothing in float32.
+All three kernels take bf16 on the tensor cores and float32 on the CUDA
+cores.  Like the JAX kernels, they round p (and ds) to the operands' dtype
+before the products that take them: O = p·V in the forward (its row sum l
+keeps the unrounded p), dq = ds·K, dk = dsᵀ·Q and dv = pᵀ·dO in the
+backward; the plain versions do the same, which changes nothing in
+float32.  The forward kernel rounds p = exp(s − m) against the running row
+max m, the plain version against the final one, so in bf16 their p may
+round apart (see ``flash_attention_plain``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version.  There is no fallback between the two and no
@@ -48,13 +52,23 @@ dq_launches = 0
 dkv_launches = 0
 
 
+def _rounded(x, dtype):
+    """x rounded to the operands' dtype, back in float32, as the JAX kernels
+    round p and ds before the products that take them (a no-op in
+    float32)."""
+    return x.to(dtype).float()
+
+
 def flash_attention_plain(q, k, v, q_pos, kv_pos):
     """The forward kernel's function in plain PyTorch.
 
     q (B, S, Hq, D), k/v (B, T, Hkv, D), q_pos (B, S) int, kv_pos (T,) or
     (B, T) int → (out (B, S, Hq, D) in q's dtype, lse (B, Hq, S) float32).
     Scale applied after the dot; a row with no visible key gives zeros and
-    lse = L_EMPTY."""
+    lse = L_EMPTY.  p = exp(s − m) against the row's final max m is rounded
+    to q's dtype before the P·V product, as the JAX kernel rounds p
+    (against its running max); the row sum l and lse keep the unrounded
+    p."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -67,10 +81,42 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos):
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bskgt,btkd->bskgd", p, v.float()) / torch.where(l > 0, l, 1.0)
+    out = torch.einsum("bskgt,btkd->bskgd", _rounded(p, q.dtype), v.float())
+    out = out / torch.where(l > 0, l, 1.0)
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, L_EMPTY))
     lse = lse.reshape(B, S, Hq).transpose(1, 2).contiguous()
     return out.reshape(B, S, Hq, D).to(q.dtype), lse
+
+
+# bf16 forward against its plain version: both round p = exp(s - m) to bf16
+# before O = P·V and sum l from the unrounded p, but the kernel takes m as
+# the running row max over its key tiles and the plain version the final
+# max, so a term p_j·v_jd of an element rounds apart by up to two bf16
+# half-ulps of p (2**-8 of it, ~2**-8.3 RMS for independent roundings; most
+# terms where the running max moved).  The element's difference is then
+# ~2**-8.3 of the root-sum-square of its terms / l; each element is allowed
+# FWD_P_SHARE (2**-5, ~10 of those RMS) of it on top of one bf16 ulp.
+# Dropping one 64-key tile moves O by far more than the whole tolerance
+# (chip_smoke.py logs by how much).
+FWD_P_SHARE = 2**-5
+
+
+def fwd_rounding_allowance(q, k, v, q_pos, kv_pos):
+    """Per O element, FWD_P_SHARE · sqrt(Σ_j (p_j v_jd)²) / l with p and l
+    as ``flash_attention_plain`` computes them: float32 (B, S, Hq, D)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv = kv_pos if kv_pos.dim() == 2 else kv_pos[None].expand(B, T)
+    vis = (kv[:, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
+    s = torch.einsum("bskgd,btkd->bskgt", q.float().reshape(B, S, Hkv, G, D), k.float())
+    s = (s / math.sqrt(D)).masked_fill(~vis, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    del s
+    l = p.sum(dim=-1, keepdim=True)
+    rss = torch.einsum("bskgt,btkd->bskgd", p.square_(), v.float().square()).sqrt_()
+    return (FWD_P_SHARE * rss / torch.where(l > 0, l, 1.0)).reshape(B, S, Hq, D)
 
 
 def _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta):
@@ -88,13 +134,6 @@ def _bwd_probs(q, k, v, q_pos, kv_pos, g, lse, delta):
     p = torch.exp(s - rows(lse))
     dp = torch.einsum("bskgd,btkd->bskgt", g.float().reshape(B, S, Hkv, G, D), v.float())
     return p, p * (dp - rows(delta))
-
-
-def _rounded(x, dtype):
-    """x rounded to the operands' dtype, back in float32, as the JAX kernels
-    round p and ds before the products that take them (a no-op in
-    float32)."""
-    return x.to(dtype).float()
 
 
 def flash_bwd_dq_plain(q, k, v, q_pos, kv_pos, g, lse, delta):

@@ -6,8 +6,12 @@ Decode-sized calls (M <= ``MAX_KERNEL_ROWS``) go through
 ``fused_int4_matmul``: on a CUDA tensor it launches ``csrc/int4_matmul.cu``
 (the port of the TPU kernel in the JAX package's ``ops/int4_matmul.py``),
 on a CPU tensor it computes ``int4_matmul_plain``; there is no fallback
-between the two.  Larger M dequantizes the weight to x's dtype and runs one
-``torch.matmul``, as the JAX package leaves those shapes to XLA.
+between the two.  The kernel takes bf16 x with groups of a multiple of 16
+rows on the tensor cores, K split across a thread-block cluster and reduced
+inside the one launch in a fixed order (so two calls give the same bytes),
+and float32 x or smaller groups on the CUDA cores.  Larger M dequantizes the
+weight to x's dtype and runs one ``torch.matmul``, as the JAX package leaves
+those shapes to XLA.
 
 Differentiable in x (``Int4Matmul``: dx = g · Wᵀ through the dequantized
 weight, no gradient for the frozen int4 weight), for int4-base adapter

@@ -7,9 +7,16 @@ README says).  Float32 agrees to 1e-5 (one rounding of float32 sums); bf16
 to one bf16 ulp (rtol 2**-7, atol 1e-4 for outputs near zero), since kernel
 and plain version both accumulate in float32 and round the output once.
 The int4 matmul's and the matvec's atol scale with their output: 2**-8 of
-the plain output's RMS in bf16, 1e-5 of it in float32.  The backward kernels
-take bf16 on the tensor cores, rounding p and ds to bf16 as their plain
-version does, and float32 on the CUDA cores.
+the plain output's RMS in bf16, 1e-5 of it in float32.  The flash kernels
+take bf16 on the tensor cores, rounding p (and ds) to bf16 as their plain
+versions do, and float32 on the CUDA cores.  The bf16 forward rounds
+p = exp(s - m) against the running row max, its plain version against the
+final one, so each O element is also allowed FWD_P_SHARE of the
+root-sum-square of the terms it sums (``fwd_rounding_allowance`` in
+``csm_torch.ops.flash_attention``).  The int4
+kernel takes bf16 with groups of a multiple of 16 rows on the tensor cores
+(K split across a cluster's blocks, reduced in the launch) and everything
+else on the CUDA cores.
 """
 
 import numpy as np
@@ -23,6 +30,18 @@ from csm_torch.ops import matvec as tmv
 from csm_torch.utils.quantize import quantize_weight_int4
 
 PAD = 1 << 28
+def assert_fwd_close(o, lse, q, k, v, q_pos, kv_pos):
+    """The forward's O and L against the plain version: float32 to 1e-5; bf16
+    to one bf16 ulp plus the rounding allowance of p; L to 1e-4."""
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(o, o_p, atol=1e-5, rtol=1e-5)
+    else:
+        tol = tfa.fwd_rounding_allowance(q, k, v, q_pos, kv_pos) + 1e-4 + 2**-7 * o_p.float().abs()
+        err = (o.float() - o_p.float()).abs()
+        assert torch.isfinite(o.float()).all() and (err <= tol).all(), (
+            f"max |kernel - plain| {err.max().item():.3e}, {(err / tol).max().item():.2f}x the tolerance")
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
 
 
 @pytest.fixture
@@ -76,10 +95,10 @@ def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol, B, Hq, Hkv, D, T):
     assert not got[-1].any()
 
 
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2**-7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,lens,Hq,Hkv,D", [(256, (200, 0), 32, 8, 64), (300, (131,), 4, 2, 16),
                                              (64, (64,), 8, 2, 128)])
-def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, S, lens, Hq, Hkv, D):
+def test_flash_kernel_matches_plain(cuda, dtype, S, lens, Hq, Hkv, D):
     q, k, v, q_pos, kv_pos = (torch.from_numpy(x).to(cuda)
                               for x in _flash_inputs(S, S + 25, lens, Hq, Hkv, D))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -87,9 +106,42 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, rtol, S, lens, Hq, Hkv, D
     o, lse = tfa.flash_gqa_attention_with_lse(q, k, v, q_pos, kv_pos)
     torch.cuda.synchronize()
     assert tfa.launches == n + 1
-    o_p, lse_p = tfa.flash_attention_plain(q, k, v, q_pos, kv_pos)
-    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+    assert_fwd_close(o, lse, q, k, v, q_pos, kv_pos)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_fwd_bf16_tensor_cores(cuda, D):
+    """bf16 at every head dim: ragged S (300 rows: 4.7 stacked-row blocks),
+    PAD_POS rows (which attend every slot up to PAD_POS), and a row with no
+    visible key (zeros, L = 1e30)."""
+    q, k, v, q_pos, kv_pos = (torch.from_numpy(x).to(cuda)
+                              for x in _flash_inputs(300, 325, (300, 131, 0), 8, 2, D, seed=D))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    o, lse = tfa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert_fwd_close(o, lse, q, k, v, q_pos, kv_pos)
+    assert not o[2].any() and (lse[2] == tfa.L_EMPTY).all()
+    pad = q_pos == PAD
+    assert pad.any() and o[pad].abs().amax() > 0
+
+
+def test_flash_fwd_bf16_s_below_t_with_per_row_kv_pos(cuda):
+    """S < T (the queries are the last 200 of 300 positions) with a (B, T)
+    kv_pos whose rows mark other slots dead, at the training shape's heads."""
+    q, k, v, q_pos, kv_pos, *_ = _bwd_inputs(200, 300, 32, 8, 64, 2, cuda, torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert_fwd_close(o, lse, q, k, v, q_pos, kv_pos)
+
+
+def test_flash_fwd_float32_stays_on_cuda_cores(cuda):
+    """float32 at the training shape agrees with the plain version to 1e-5:
+    the CUDA-core route.  Inputs rounded to bf16 (or TF32) for a tensor core
+    would miss by ~1e-3."""
+    q, k, v, q_pos, kv_pos, *_ = _bwd_inputs(512, 512, 32, 8, 64, 1, cuda, torch.float32)
+    o, lse = tfa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert_fwd_close(o, lse, q, k, v, q_pos, kv_pos)
 
 
 def test_wrappers_refuse_a_card_tensor_they_cannot_take(cuda):
@@ -128,6 +180,71 @@ def test_int4_kernel_matches_plain(cuda, dtype, rel_atol, rtol, M, K, N, gs):
     torch.testing.assert_close(got.float(), want.float(), atol=rel_atol * rms, rtol=rtol)
 
 
+def _int4_check(M, K, N, gs, dev, x=None):
+    """bf16 kernel against the plain version (one bf16 ulp plus 2**-8 of
+    the output's RMS); returns the kernel's output."""
+    x0, q = _int4_inputs(M, K, N, gs, dev, torch.bfloat16, seed=M + K + N + gs)
+    x = x0 if x is None else x.copy_(x0)
+    got = tint4.fused_int4_matmul(x, q)
+    torch.cuda.synchronize()
+    want = tint4.int4_matmul_plain(x, q)
+    rms = want.float().pow(2).mean().sqrt().item()
+    assert rms > 0 and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want.float(), atol=2**-8 * rms, rtol=2**-7)
+    return got
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("K,N", [(1024, 1536), (1024, 1024), (8192, 1024), (1024, 16384)])
+def test_int4_kernel_decoder_shapes(cuda, M, K, N):
+    """The CSM-1B decoder's wqkv, wo, w2 and w13 at M = 1 and 2: 496 of the
+    560 int4 launches of a frame."""
+    _int4_check(M, K, N, 128, cuda)
+
+
+@pytest.mark.parametrize("M", [1, 2, 16, 17, 33, 64])
+def test_int4_kernel_every_row_tiling(cuda, M):
+    """Each row tiling of the tensor-core route: one 8-row x tile (M <= 8),
+    two, four and eight."""
+    _int4_check(M, 2048, 3072, 128, cuda)
+
+
+@pytest.mark.parametrize("K", [1920, 2176])
+def test_int4_kernel_uneven_split(cuda, K):
+    """K in 15 and 17 stages of 128 rows at N = 1024 (16 column tiles): a
+    cluster of 15 blocks, one stage each, and one of 16 blocks whose slices
+    are of unequal length."""
+    _int4_check(1, K, 1024, 128, cuda)
+
+
+@pytest.mark.parametrize("N", [200, 1000, 640, 24])
+def test_int4_kernel_ragged_and_unaligned(cuda, N):
+    """N not a multiple of a block's columns (640), nor of 16 (200, 1000, 24:
+    plain loads into the ring); then x at an address that is not 16-byte
+    aligned."""
+    _int4_check(3, 256, N, 32, cuda)
+    x = torch.empty(3 * 256 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(3, 256)
+    _int4_check(3, 256, N, 32, cuda, x=x)
+
+
+@pytest.mark.parametrize("gs", [2, 32, 128, 256])
+def test_int4_kernel_group_sizes(cuda, gs):
+    """gs = 2 takes the CUDA-core route (a group smaller than one mma
+    k-step); 32, 128 and 256 the tensor cores (a stage of 4, 1 and 1
+    groups)."""
+    _int4_check(5, 1024, 512, gs, cuda)
+
+
+def test_int4_kernel_is_deterministic(cuda):
+    """The split of K is reduced in a fixed order: two calls give the same
+    bytes."""
+    x, q = _int4_inputs(1, 2048, 16384, 128, cuda, torch.bfloat16)
+    a = tint4.fused_int4_matmul(x, q)
+    b = tint4.fused_int4_matmul(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_int4_routes_on_rows(cuda):
     """int4_matmul sends M <= 64 rows to the kernel and more rows to
     dequant + matmul; a layer slice of a stacked weight goes in as it is."""
@@ -162,7 +279,7 @@ def _bwd_inputs(S, T, Hq, Hkv, D, kv_rows, dev, dtype, seed=0, B=2):
     """Backward inputs: the queries are the last S of T positions; with
     kv_rows = 2 each row's (B, T) kv_pos marks a few slots dead (PAD_POS),
     never slot 0, so every row sees a key.  out and lse from the plain
-    forward in float32."""
+    forward in float32 (p unrounded), out then cast to dtype."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)  # noqa: E731
     q, k, v, g = f(B, S, Hq, D), f(B, T, Hkv, D), f(B, T, Hkv, D), f(B, S, Hq, D)
@@ -173,7 +290,8 @@ def _bwd_inputs(S, T, Hq, Hkv, D, kv_rows, dev, dtype, seed=0, B=2):
             kv_pos[b, torch.from_numpy(rng.choice(np.arange(1, T), 7 * (b + 1), replace=False))] = PAD
     else:
         kv_pos = kv_pos[0].contiguous()
-    out, lse = tfa.flash_attention_plain(q, k, v, q_pos, kv_pos)
+    out, lse = tfa.flash_attention_plain(q.float(), k.float(), v.float(), q_pos, kv_pos)
+    out = out.to(dtype)
     g_lse = torch.from_numpy(rng.standard_normal((B, Hq, S)).astype(np.float32)).to(dev)
     return q, k, v, q_pos, kv_pos, out, lse, g, g_lse
 

@@ -3,8 +3,9 @@ package's Pallas kernels run in interpret mode on the CPU (the CUDA kernels
 themselves are held against these plain versions on a card, in
 tests/test_torch_cuda.py).
 
-Float32 throughout on the CPU; tolerances are float32 rounding of sums over
-at most a few hundred keys (2e-5).  The JAX decode kernel reads past the end
+Float32 on the CPU; tolerances are float32 rounding of sums over at most a
+few hundred keys (2e-5).  The flash forward is also compared in bf16, where
+both sides round p to bf16 before the P·V product.  The JAX decode kernel reads past the end
 of its last chunk and returns NaN whenever T is not a multiple of 128, so it
 is compared only at T in {256, 512}; ragged T is held against
 ``gqa_attention`` instead.
@@ -72,6 +73,41 @@ def test_flash_plain_matches_jax_kernel(interpret_pallas, S, lens):
     if 0 in lens:
         empty = lens.index(0)
         assert not o_t[empty].any() and (l_t[empty] == tfa.L_EMPTY).all()
+
+
+@pytest.mark.parametrize("S,lens,Hkv", [(256, (200, 256), 1), (300, (131, 300), 2)])
+def test_flash_plain_matches_jax_kernel_bf16(interpret_pallas, S, lens, Hkv):
+    """bf16: the same numpy inputs cast to bf16 on both sides.  Both round
+    p = exp(s - m) to bf16 before the P·V product and sum l from the
+    unrounded p; the JAX kernel takes m as the running max over its key
+    chunks, the plain version the final max, and the two sum in other
+    orders, so a p may round apart: each O element is allowed one bf16 ulp
+    (rtol 2**-7, atol 1e-4) plus FWD_P_SHARE of the root-sum-square of the
+    terms p_j·v_jd / l it sums (``fwd_rounding_allowance``), as the CUDA
+    kernel is held on a card.  L agrees to 1e-4 (float32 of the same bf16
+    scores).  Every row sees a key (the JAX kernel gives an empty row the
+    mean of V).
+
+    That tolerance does not tell p rounded from p kept in float32: a plain
+    version that leaves p unrounded is within 0.40-0.42 of it here (0.23-0.26
+    with p rounded).  What tells them apart is how many O elements differ at
+    all: ~0.05 % with p rounded, ~37 % without, which the last assert
+    holds."""
+    q, k, v, q_pos, kv_pos = _flash_inputs(S, S + 25, lens, Hkv=Hkv)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    o_j, l_j = jfa._flash_fwd(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_pos), 256)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    args = (bf(q), bf(k), bf(v), torch.from_numpy(q_pos), torch.from_numpy(kv_pos))
+    o_t, l_t = tfa.flash_gqa_attention_with_lse(*args)
+    assert o_t.dtype == torch.bfloat16
+    want = torch.from_numpy(np.asarray(o_j, np.float32))
+    tol = 1e-4 + 2**-7 * want.abs() + tfa.fwd_rounding_allowance(*args)
+    err = (o_t.float() - want).abs()
+    assert (err <= tol).all(), f"{(err / tol).max().item():.2f}x the tolerance"
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j), atol=1e-4, rtol=1e-5)
+    unrounded = tfa.flash_attention_plain(*(a.float() for a in args[:3]), *args[3:])[0]
+    differ = lambda o: (o.float() != want).float().mean().item()  # noqa: E731
+    assert differ(o_t) < 0.01 and differ(unrounded.bfloat16()) > 0.1
 
 
 def test_flash_plain_with_shared_kv_pos_matches_gqa():

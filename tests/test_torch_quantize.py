@@ -32,7 +32,9 @@ from csm_torch.models import generation as tgen
 from csm_torch.models.llama import fuse_projections as t_fuse
 from csm_torch.ops import int4_matmul as tint4
 from csm_torch.ops import kvcache as tkv
+from csm_torch.scripts.bench_int4_cuda_cores import cuda_core_source
 from csm_torch.utils import quantize as tq
+from csm_torch.utils.cuda_build import CSRC
 from csm_torch.utils.params import params_from_jax, tree_map
 
 
@@ -134,6 +136,18 @@ def test_int4_plain_is_the_kernel_arithmetic():
     dropped = dict(qt, scale4=qt["scale4"].clone())
     dropped["scale4"][3] = 0
     assert (tint4.int4_matmul_plain(x, dropped) - got).abs().max() > 1e-2 * got.abs().max()
+
+
+def test_int4_cuda_core_probe_edits_the_kernel_source():
+    """The CUDA-core probe's edits each find their text once in
+    csrc/int4_matmul.cu and route M <= 8 to the CUDA-core compute; a source
+    without one of those texts is refused, not half edited."""
+    src = (CSRC / tint4.SOURCE).read_text()
+    out = cuda_core_source(src)
+    assert "launch<1, 4, 1, 1>" in out and "launch<1, 4, 1>(" not in out
+    assert out.count("int4_mma_kernel<MB, NTL, WN, CCR>") == 3
+    with pytest.raises(ValueError, match="changed"):
+        cuda_core_source(src.replace("unpack<C::W>(w0, w1, lo, hi);", ""))
 
 
 def test_int4_matmul_grad_matches_jax():
