@@ -10,12 +10,16 @@ is wrong:
   2. the kernels build from csm_torch/csrc (one nvcc per source, in
      parallel) into build/kernels/;
   3. each kernel is held against its plain PyTorch version in bf16 at the
-     shapes of the main path (the flash forward at the prefill's and at the
-     training's, with a dropped key tile shown to fail its tolerance; the
-     int4 matmul at every CSM-1B and 8B projection, with its launch-weighted
-     time of a frame; the matvec at the CSM-1B backbone's four projections),
-     and timed beside that plain version, one PyTorch library call computing
-     the same function, and its bound;
+     shapes of the main path (decode at every cache length a generate
+     attends, with few live keys in a long cache, and with one live key
+     tile masked shown to fail its tolerance, its launch-weighted time of
+     a frame and a launch floor beside it; the flash forward at the
+     prefill's and at the training's, with a dropped key tile shown to fail
+     its tolerance; the int4 matmul at every CSM-1B and 8B projection, with
+     its launch-weighted time of a frame; the matvec at the CSM-1B
+     backbone's four projections), and timed beside that plain version, one
+     PyTorch library call computing the same function, and its bound (for
+     decode, from the live keys only);
   4. the main path runs at CSM-1B width on random weights: Generator.generate
      (prompt bucket 64), generate (bucket 256: prefill through the flash
      kernel) and generate_batch of two prompts, with the kernels' launch
@@ -147,14 +151,15 @@ def check_close(name, got, want, atol, rtol) -> float:
 # ---------------------------------------------------------------- phase 3
 
 
-def decode_case(B, Hq, Hkv, D, T, gen, dev, shared_mask=False, dead_row=False):
-    """bf16 decode inputs; row b sees keys < its own length."""
+def decode_case(B, Hq, Hkv, D, T, gen, dev, shared_mask=False, dead_row=False, live=None):
+    """bf16 decode inputs; row b sees keys < its own length: live[b], or
+    T - 7·b."""
     import torch
 
     q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([T - 7 * b for b in range(B)], device=dev)
+    lens = torch.tensor(live or [T - 7 * b for b in range(B)], device=dev)
     mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, :]
     if shared_mask:
         mask = mask[:1].contiguous()
@@ -182,10 +187,28 @@ def flash_case(B, S, T, Hq, Hkv, D, gen, dev):
 
 
 def decode_bound(q, k, mask):
+    """Bytes and FLOPs of the live keys only (the work depends on the mask):
+    q read and out written once, each live key's K and V rows once, the
+    mask once."""
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    moved = 2 * (2 * B * Hq * D) + 2 * (2 * B * T * Hkv * D) + mask.numel()
-    return bound_ms(moved, 4.0 * B * Hq * D * T)
+    live = int(mask.expand(B, 1, T).sum())
+    moved = 2 * (2 * B * Hq * D) + 2 * (2 * live * Hkv * D) + mask.numel()
+    return bound_ms(moved, 4.0 * Hq * D * live)
+
+
+def dropped_key_tile(mask):
+    """The mask with one live key tile of every row masked: the middle
+    whole 64-key tile of the row's live keys, or half of them when it has
+    fewer than 128: what a kernel that skipped a live tile would compute."""
+    out = mask.clone()
+    for row in out[:, 0]:
+        n = int(row.sum())
+        if n:
+            width = min(64, max(1, n // 2))
+            j0 = width * ((n // width) // 2)
+            row[j0 : j0 + width] = False
+    return out
 
 
 def flash_bound(q, k, q_pos, kv_pos):
@@ -416,6 +439,39 @@ def bwd_rows(gen, dev, flush):
     return rows
 
 
+# decode: backbone (Hq=32, Hkv=8, D=64) and decoder (Hq=8, Hkv=2, D=128)
+DECODE_SHAPES = [
+    dict(B=1, Hq=32, Hkv=8, D=64, T=89),  # main path: bucket 64 + 25 frames
+    dict(B=1, Hq=32, Hkv=8, D=64, T=89, shared_mask=True),
+    dict(B=2, Hq=32, Hkv=8, D=64, T=89),
+    dict(B=1, Hq=32, Hkv=8, D=64, T=281),  # bucket 256 + 25 frames
+    dict(B=1, Hq=32, Hkv=8, D=64, T=1189),  # a default generate: bucket 64 + 1125 frames
+    dict(B=2, Hq=32, Hkv=8, D=64, T=1189, dead_row=True),
+    dict(B=1, Hq=32, Hkv=8, D=64, T=1189, live=(89,)),  # ... 25 frames into it
+    dict(B=2, Hq=32, Hkv=8, D=64, T=1189, live=(89, 60)),
+    dict(B=1, Hq=32, Hkv=8, D=64, T=2048),
+    dict(B=2, Hq=32, Hkv=8, D=64, T=2048, dead_row=True),
+    dict(B=1, Hq=8, Hkv=2, D=128, T=32),  # decoder: fresh 32-slot cache
+    dict(B=2, Hq=8, Hkv=2, D=128, T=32),
+]
+# the backbone row a frame's decode time is weighted from: T=89 as in
+# generate_short, and a default generate's 1189 slots with 89 live
+DECODE_FRAME_ROWS = {"T89": dict(B=1, Hq=32, Hkv=8, D=64, T=89),
+                     "T1189_live89": dict(B=1, Hq=32, Hkv=8, D=64, T=1189, live=(89,))}
+DECODE_DECODER_ROW = dict(B=1, Hq=8, Hkv=2, D=128, T=32)
+
+
+def decode_frame(rows, args, backbone_shape):
+    """The decode kernel's launches and summed kernel ms in one CSM-1B
+    frame at B=1, from the timed rows: one backbone launch a layer, and one
+    a decoder layer in each of the decoder's S=1 steps (codebooks 2 to K-1)."""
+    ms = {json.dumps(r["shape"], sort_keys=True): r["ms"] for r in rows}
+    key = lambda shape: json.dumps(shape, sort_keys=True)  # noqa: E731
+    n_bb = args.backbone.num_layers
+    n_dec = args.decoder.num_layers * (args.audio_num_codebooks - 2)
+    return n_bb + n_dec, n_bb * ms[key(backbone_shape)] + n_dec * ms[key(DECODE_DECODER_ROW)]
+
+
 def phase_kernels(dev, flush, details):
     """Hold each kernel against its plain version; time both at the main
     path's shapes.  Returns the per-kernel records (launches filled later)."""
@@ -426,20 +482,11 @@ def phase_kernels(dev, flush, details):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    # decode: backbone (Hq=32, Hkv=8, D=64) and decoder (Hq=8, Hkv=2, D=128)
-    decode_shapes = [
-        dict(B=1, Hq=32, Hkv=8, D=64, T=89),  # main path: bucket 64 + 25 frames
-        dict(B=1, Hq=32, Hkv=8, D=64, T=89, shared_mask=True),
-        dict(B=2, Hq=32, Hkv=8, D=64, T=89),
-        dict(B=1, Hq=32, Hkv=8, D=64, T=281),  # bucket 256 + 25 frames
-        dict(B=1, Hq=32, Hkv=8, D=64, T=1189),
-        dict(B=2, Hq=32, Hkv=8, D=64, T=1189, dead_row=True),
-        dict(B=1, Hq=32, Hkv=8, D=64, T=2048),
-        dict(B=2, Hq=32, Hkv=8, D=64, T=2048, dead_row=True),
-        dict(B=1, Hq=8, Hkv=2, D=128, T=32),  # decoder: fresh 32-slot cache
-        dict(B=2, Hq=8, Hkv=2, D=128, T=32),
-    ]
-    for shape in decode_shapes:
+    z = torch.zeros(1, device=dev)
+    floor_ms = timed_ms(z.zero_, flush)
+    details["launch_floor_ms"] = floor_ms
+    log(f"launch floor (a one-element zero_()): {floor_ms:.5f} ms")
+    for shape in DECODE_SHAPES:
         q, k, v, mask = decode_case(**shape, gen=gen, dev=dev)
         got = dec.decode_gqa_attention(q, k, v, mask)
         torch.cuda.synchronize()
@@ -447,12 +494,20 @@ def phase_kernels(dev, flush, details):
         err = check_close(f"decode {shape}", got, want, BF16_ATOL, BF16_RTOL)
         if shape.get("dead_row") and got[-1].any():
             raise AssertionError("a fully masked row must give zeros")
+        drop = dec.decode_attention_plain(q, k, v, dropped_key_tile(mask)).float()
+        moved = ((drop - want.float()).abs() / (BF16_ATOL + BF16_RTOL * want.float().abs())).max().item()
+        if not moved > 10:
+            raise AssertionError(f"decode {shape}: masking one live key tile moves the plain "
+                                 f"output only {moved:.1f}x the tolerance")
         b_ms, b_by = decode_bound(q, k, mask)
         rows.append(dict(kernel="decode_attention", shape=shape, max_abs_err=err,
+                         drop_one_tile=moved,
                          ms=timed_ms(lambda: dec.decode_gqa_attention(q, k, v, mask), flush),
                          plain_ms=timed_ms(lambda: dec.decode_attention_plain(q, k, v, mask), flush),
                          library_ms=timed_ms(sdpa_decode(q, k, v, mask), flush),
                          bound_ms=b_ms, bound_by=b_by))
+        log(f"decode {shape}: max |kernel - plain| {err:.3e}; masking one live key tile moves "
+            f"the plain output {moved:.0f}x the tolerance")
     # flash forward: prefill buckets 256 and 512, T = S + 25 frames
     for B, S in ((1, 256), (2, 256), (1, 512), (2, 512)):
         q, k, v, q_pos, kv_pos = flash_case(B, S, S + 25, 32, 8, 64, gen, dev)
@@ -493,9 +548,18 @@ def phase_kernels(dev, flush, details):
     details["int4_frame"] = {"launches": frame_launches, "ms": frame_ms}
     log(f"int4 kernel time of one CSM-1B frame at B=1, launch-weighted from the rows above: "
         f"{frame_launches} launches, {frame_ms:.4f} ms")
+    dec_rows = [r for r in rows if r["kernel"] == "decode_attention"]
+    dec_frame = {name: decode_frame(dec_rows, csm_1b_args(), bb) for name, bb in DECODE_FRAME_ROWS.items()}
+    details["decode_frame"] = dec_frame
+    for name, (n, ms) in dec_frame.items():
+        log(f"decode kernel time of one CSM-1B frame at B=1, backbone row {name}, "
+            f"launch-weighted from the rows above: {n} launches, {ms:.4f} ms "
+            f"(launch floor {floor_ms:.5f} ms)")
     return [
         record("decode_attention", "csm_torch/csrc/decode_attention.cu",
-               "csm_tpu/ops/decode_attention.py:55", decode_shapes[0]),
+               "csm_tpu/ops/decode_attention.py:55", DECODE_SHAPES[0],
+               bound_count="live keys only", launch_floor_ms=floor_ms,
+               **{f"frame_ms_{name}": ms for name, (_, ms) in dec_frame.items()}),
         record("flash_attention_fwd", "csm_torch/csrc/flash_attention.cu",
                "csm_tpu/ops/flash_attention.py:117",
                dict(B=1, S=256, T=281, Hq=32, Hkv=8, D=64)),

@@ -1,10 +1,13 @@
 // Shared helpers for the port's kernels: float conversion, 16-byte vector
 // loads of bf16 / f32 rows into float registers, warp reductions, the
-// once-per-size shared-memory attribute and the SM count.
+// once-per-size shared-memory attribute, the SM count, and the launch of a
+// grid in thread-block clusters (the split-K / split-T kernels).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <utility>
 
 namespace csm {
 
@@ -81,6 +84,47 @@ inline int sm_count() {
   if (!n[dev] && cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     n[dev] = 132;
   return n[dev];
+}
+
+// Let `Kernel` launch in clusters of more than 8 blocks (the non-portable
+// sizes, up to 16 on the H100), once per device.
+template <auto Kernel>
+cudaError_t allow_large_clusters(int max_cluster) {
+  static bool done[64] = {};
+  if (max_cluster <= 8) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
+// Launch `kernel` on `grid` in clusters of `cluster_x` blocks along x, then
+// return the launch's error.  A cluster of one block launches as a plain
+// grid (each block its own implicit cluster): on the H100 the cluster
+// attribute alone made decode attention at the decoder's shape, one block
+// a cluster, measurably slower.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,
+                           cudaStream_t stream, int cluster_x, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster_x > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace csm

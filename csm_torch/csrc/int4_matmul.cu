@@ -565,21 +565,6 @@ int4_mma_kernel(const bf16* __restrict__ x,       // (M, K)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// Let `Kernel` launch in clusters of more than 8 blocks, once per device.
-template <auto Kernel>
-cudaError_t allow_large_clusters(int max_cluster) {
-  static bool done[64] = {};
-  if (max_cluster <= 8) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) done[dev] = true;
-  return err;
-}
-
 template <int MB, int NTL, int WN>
 cudaError_t launch(const void* x, const void* w4p, const void* s4, void* y, Geo g,
                    cudaStream_t stream) {
@@ -591,28 +576,15 @@ cudaError_t launch(const void* x, const void* w4p, const void* s4, void* y, Geo 
   g.cs = want < C::kMaxCluster ? want : C::kMaxCluster;
   if (g.cs > g.nst) g.cs = g.nst;
   if (g.cs < 1) g.cs = 1;
-  cudaError_t err = allow_large_clusters<int4_mma_kernel<MB, NTL, WN>>(C::kMaxCluster);
+  cudaError_t err = csm::allow_large_clusters<int4_mma_kernel<MB, NTL, WN>>(C::kMaxCluster);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<MB, NTL, WN>(g);
   err = csm::ensure_smem<int4_mma_kernel<MB, NTL, WN>>(smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.cs, ntiles, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = g.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, int4_mma_kernel<MB, NTL, WN>, static_cast<const bf16*>(x),
-                           static_cast<const uint8_t*>(w4p), static_cast<const bf16*>(s4),
-                           static_cast<bf16*>(y), g);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return csm::launch_cluster(int4_mma_kernel<MB, NTL, WN>, dim3(g.cs, ntiles, 1), kThreads, smem,
+                             stream, g.cs, static_cast<const bf16*>(x),
+                             static_cast<const uint8_t*>(w4p), static_cast<const bf16*>(s4),
+                             static_cast<bf16*>(y), g);
 }
 
 cudaError_t dispatch(const void* x, const void* w4p, const void* s4, void* y, int M, int K,

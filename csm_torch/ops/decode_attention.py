@@ -5,20 +5,26 @@
 tensor it launches ``csrc/decode_attention.cu`` (the port of the TPU kernel
 in the JAX package's ``ops/decode_attention.py``); on a CPU tensor it
 computes ``decode_attention_plain``.  There is no fallback between the two.
+The kernel splits T over a thread-block cluster by ``decode_plan``, which
+reads shapes only, so one launch a call holds in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from csm_torch.utils.cuda_build import load_library
+from csm_torch.utils.device import sm_count
 
 SOURCE = "decode_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+MAX_SPLITS = 16  # blocks of a cluster that share one (kv head, row)'s keys
 
 launches = 0  # kernel launches since the last reset (read by chip_smoke.py)
 
@@ -45,6 +51,35 @@ def decode_attention_plain(
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float()) / torch.where(l > 0, l, 1.0)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+class DecodePlan(NamedTuple):
+    tile: int  # keys a tile: the unit of loading and of skipping masked keys
+    splits: int  # blocks of a cluster that share one (kv head, row)'s tiles
+
+
+def tile_keys(D: int) -> int:
+    """Keys a tile: 64, or 32 at D = 128 (8 KB of bf16 K either way from D = 64)."""
+    return 32 if D == 128 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, Hkv: int, T: int, D: int, sm_count: int) -> DecodePlan:
+    """The kernel's launch plan, from shapes alone (never the mask, so a
+    CUDA graph can hold the launch): split T so that the B·Hkv clusters
+    cover the SMs, at most MAX_SPLITS ways and never more ways than tiles,
+    so every split has one."""
+    tile = tile_keys(D)
+    ntiles = -(-T // tile)
+    splits = max(1, min(MAX_SPLITS, ntiles, -(-sm_count // (B * Hkv))))
+    return DecodePlan(tile, splits)
+
+
+def decode_shares(T: int, plan: DecodePlan) -> list[tuple[int, int]]:
+    """The keys [t0, t1) each split takes, as the kernel computes them:
+    whole tiles, split r from r·n/splits to (r+1)·n/splits of the n tiles."""
+    n, S = -(-T // plan.tile), plan.splits
+    return [(r * n // S * plan.tile, min(T, (r + 1) * n // S * plan.tile)) for r in range(S)]
 
 
 def _check(q, k, v, mask):
@@ -77,7 +112,7 @@ def _lib():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
-                       ctypes.c_longlong, ctypes.c_float, i, vp]
+                       ctypes.c_longlong, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -98,12 +133,13 @@ def decode_gqa_attention(
     global launches
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    plan = decode_plan(B, Hkv, T, D, sm_count(q.device))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _lib()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             B, T, Hq, Hkv, D, T if mask.shape[0] == B and B > 1 else 0,
-            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            1.0 / math.sqrt(D), *plan, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:

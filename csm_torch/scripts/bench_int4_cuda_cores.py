@@ -133,8 +133,8 @@ _EDITS = (
      "allow_large_clusters<int4_mma_kernel<MB, NTL, WN, CCR>>"),
     ("csm::ensure_smem<int4_mma_kernel<MB, NTL, WN>>",
      "csm::ensure_smem<int4_mma_kernel<MB, NTL, WN, CCR>>"),
-    ("cudaLaunchKernelEx(&cfg, int4_mma_kernel<MB, NTL, WN>,",
-     "cudaLaunchKernelEx(&cfg, int4_mma_kernel<MB, NTL, WN, CCR>,"),
+    ("csm::launch_cluster(int4_mma_kernel<MB, NTL, WN>,",
+     "csm::launch_cluster(int4_mma_kernel<MB, NTL, WN, CCR>,"),
     ("  if (M <= 8) return launch<1, 4, 1>(x, w4p, s4, y, g, stream);\n",
      "  if (M == 1) return launch<1, 4, 1, 1>(x, w4p, s4, y, g, stream);\n"
      "  if (M == 2) return launch<1, 4, 1, 2>(x, w4p, s4, y, g, stream);\n"

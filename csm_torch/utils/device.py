@@ -7,6 +7,8 @@ instead of falling back silently (the CPU tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,10 @@ def resolve_device(device) -> torch.device:
             "device='cpu' to run on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: the kernels' launch plans
+    are sized from it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -15,13 +15,19 @@ of the host's speed cancels in the comparison.  Each run prints one JSON
 line; the card's name and power limit come first, a summary of medians
 last, and everything goes to chiprun_out/port_ab.json.
 
-With ``--kernels`` each run instead times the flash forward, the flash
-backward pair and the int4 matmul in bf16 at the main path's shapes (median
-of 30 launches, each after a 256 MB write that evicts the L2) and saves the
-backward's gradients from fixed numpy inputs; the order is other, this,
-this, other.  The summary gives each tree's median ms per kernel and shape,
-and whether the two trees' backward gradients are equal bit for bit
-(chiprun_out/port_ab_kernels.json).
+With ``--kernels`` each run instead times, in bf16 at the main path's
+shapes (median of 30 launches, each after a 256 MB write that evicts the
+L2): decode attention at every shape of ``chip_smoke.py``'s phase 3
+(``DECODE_SHAPES``, inputs from ``chip_smoke.decode_case`` of this tree
+in both runs) beside a launch floor (a one-element ``zero_()``), the flash
+forward, the flash backward pair, the int4 matmul, and the matvec at
+``chip_smoke.MATVEC_SHAPES`` plus the 16-layer probe pass
+(``csm_torch.scripts.bench_matvec.run``: kernel and ``torch.matmul``
+passes).  It saves the backward's gradients and the int4 outputs from
+fixed numpy inputs; the order is other, this, this, other.  The summary
+gives each tree's median ms per kernel and shape, and whether the two
+trees' backward gradients and int4 outputs are equal bit for bit
+(chiprun_out/port_ab_kernels.json); it exits 1 if they are not.
 """
 
 from __future__ import annotations
@@ -53,9 +59,14 @@ print(json.dumps({"mode": mode, "runs": runs}))
 
 
 KERNEL_WORKER = r"""
-import hashlib, json, statistics, sys, numpy as np, torch
-from csm_torch.ops import flash_attention as fa, int4_matmul as i4
+import hashlib, importlib.util, json, statistics, sys, numpy as np, torch
+from csm_torch.ops import decode_attention as dec, flash_attention as fa, int4_matmul as i4
+from csm_torch.ops import matvec as mv
+from csm_torch.scripts import bench_matvec
 from csm_torch.utils.quantize import quantize_weight_int4
+spec = importlib.util.spec_from_file_location("chip_smoke_shapes", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)  # this tree's shapes and inputs, whichever tree runs
 dev = torch.device("cuda")
 flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 def timed(fn, n=30):
@@ -67,9 +78,16 @@ def timed(fn, n=30):
         flush.zero_(); a.record(); fn(); b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+sha = lambda t: hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
 rng = np.random.default_rng(0)
 bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, torch.bfloat16)
-times, grads = {}, {}
+times, grads, int4_out = {}, {}, {}
+z = torch.zeros(1, device=dev)
+times["launch floor"] = timed(z.zero_)
+gen = torch.Generator(device=dev).manual_seed(0)
+for shape in cs.DECODE_SHAPES:
+    q, k, v, mask = cs.decode_case(**shape, gen=gen, dev=dev)
+    times[f"decode {json.dumps(shape)}"] = timed(lambda: dec.decode_gqa_attention(q, k, v, mask))
 for B, S, T in ((1, 256, 281), (2, 512, 512), (2, 2048, 2048)):
     q, k, v, g = bf(B, S, 32, 64), bf(B, T, 8, 64), bf(B, T, 8, 64), bf(B, S, 32, 64)
     q_pos = torch.arange(T - S, T, dtype=torch.int32, device=dev).expand(B, S).contiguous()
@@ -80,8 +98,7 @@ for B, S, T in ((1, 256, 281), (2, 512, 512), (2, 2048, 2048)):
     delta = fa.bwd_delta(out, g)
     args = (q, k, v, q_pos, kv_pos, g, lse, delta)
     got = [fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args)]
-    grads[f"B={B} S={S} T={T}"] = [hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
-                                   for t in got]
+    grads[f"B={B} S={S} T={T}"] = [sha(t) for t in got]
     if S == T:
         times[f"flash_bwd_dq B={B} S={S}"] = timed(lambda: fa.flash_attention_bwd_dq(*args))
         times[f"flash_bwd_dkv B={B} S={S}"] = timed(lambda: fa.flash_attention_bwd_dkv(*args))
@@ -92,15 +109,25 @@ for name, K, N, M in (("backbone w13", 2048, 16384, 1), ("backbone w13", 2048, 1
     w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32) / K**0.5).to(dev)
     qw = quantize_weight_int4(w.to(torch.bfloat16))
     x = bf(M, K)
+    int4_out[f"{name} M={M}"] = sha(i4.fused_int4_matmul(x, qw))
     times[f"int4 {name} M={M}"] = timed(lambda: i4.fused_int4_matmul(x, qw))
+for proj, K, N in cs.MATVEC_SHAPES:
+    x, w = bf(1, K), bf(K, N)
+    times[f"matvec {proj} K={K} N={N}"] = timed(lambda: mv.matvec(x, w))
+    times[f"torch.matmul {proj} K={K} N={N}"] = timed(lambda: x @ w)
+del x, w
+probe = bench_matvec.run("cuda", L=16, n=50)
+times["matvec probe pass (16 layers)"] = probe["variants"]["kernel"]["ms"]
+times["torch.matmul probe pass (16 layers)"] = probe["variants"]["unrolled"]["ms"]
 torch.cuda.synchronize()
-print(json.dumps({"ms": times, "grads_sha256": grads}))
+print(json.dumps({"ms": times, "grads_sha256": grads, "int4_sha256": int4_out}))
 """
 
 
 def run_kernels(root: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root))
-    res = subprocess.run([sys.executable, "-c", KERNEL_WORKER], cwd=root, env=env,
+    res = subprocess.run([sys.executable, "-c", KERNEL_WORKER, str(ROOT / "chip_smoke.py")],
+                         cwd=root, env=env,
                          capture_output=True, text=True, timeout=1200)
     if res.returncode:
         raise RuntimeError(f"{root} kernels failed:\n{res.stdout}\n{res.stderr}")
@@ -119,13 +146,15 @@ def main_kernels(other: Path, card: str) -> int:
         for key, ms in r["ms"].items():
             summary.setdefault(key, {}).setdefault(r["tree"], []).append(ms)
     summary = {k: {t: statistics.median(v) for t, v in d.items()} for k, d in summary.items()}
-    a, b = (results[i]["grads_sha256"] for i in (0, 1))
-    same = {k: a[k] == b[k] for k in a}
-    report = {"card": card, "results": results, "median_ms": summary, "bwd_bit_equal": same}
+    same = {}
+    for what in ("grads_sha256", "int4_sha256"):
+        a, b = (results[i].get(what, {}) for i in (0, 1))
+        same.update({f"{what} {k}": a.get(k) == b[k] for k in b})
+    report = {"card": card, "results": results, "median_ms": summary, "bit_equal": same}
     (out_dir / "port_ab_kernels.json").write_text(json.dumps(report, indent=1))
     for key, d in summary.items():
-        print(f"{key:<36} other {d['other']:.5f} ms   this {d['this']:.5f} ms", flush=True)
-    print(json.dumps({"card": card, "bwd_bit_equal": same}))
+        print(f"{key:<72} other {d['other']:.5f} ms   this {d['this']:.5f} ms", flush=True)
+    print(json.dumps({"card": card, "bit_equal": same}))
     return 0 if all(same.values()) else 1
 
 

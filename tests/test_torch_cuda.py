@@ -16,7 +16,11 @@ root-sum-square of the terms it sums (``fwd_rounding_allowance`` in
 ``csm_torch.ops.flash_attention``).  The int4
 kernel takes bf16 with groups of a multiple of 16 rows on the tensor cores
 (K split across a cluster's blocks, reduced in the launch) and everything
-else on the CUDA cores.
+else on the CUDA cores.  Decode attention splits T across a cluster and
+skips key tiles whose mask is all False, and the matvec splits K across a
+cluster, both merged in rank order in the launch: their tests cover masks
+and K that hit those splits unevenly, and hold both kernels to give the
+same bytes on every launch and under CUDA-graph replay.
 """
 
 import numpy as np
@@ -80,19 +84,91 @@ def _flash_inputs(S, T, lens, Hq=4, Hkv=1, D=64, seed=0):
     return q, k, v, q_pos, kv_pos
 
 
+def decode_pattern_mask(pattern, B, T):
+    """Masks (B, 1, T), or (1, 1, T) for "shared", that exercise the decode
+    kernel's split of T and its skipping of masked key tiles:
+
+      causal      each row live up to a random length >= T/2, the last row
+                  dead (``_decode_inputs``'s mask);
+      full        every key live;
+      mid_tiles   every key live but the whole 64-key tiles of keys
+                  128-383 (the middle of a long cache);
+      last_split  only the last 40 keys live (in the last split at T=1189);
+      live89      only the first 89 keys live (a default generate's 1189
+                  slots, 25 frames in);
+      shared      one (1, 1, T) row live up to 2T/3, broadcast to every row;
+      dead        row 0 sees no key (zeros), the others the first T/2."""
+    t = np.arange(T)[None, None, :]
+    if pattern == "causal":
+        return _decode_inputs(B, 1, 1, 8, T)[3]
+    if pattern == "shared":
+        return t < (2 * T) // 3
+    mask = {
+        "full": np.ones((1, 1, T), bool),
+        "mid_tiles": (t < 128) | (t >= 384),
+        "last_split": t >= T - 40,
+        "live89": t < 89,
+        "dead": t < T // 2,
+    }[pattern]
+    mask = np.broadcast_to(mask, (B, 1, T)).copy()
+    if pattern == "dead":
+        mask[0] = False
+    return mask
+
+
+# (B, Hq, Hkv, D, T, mask pattern): the backbone's heads at every cache
+# length a generate attends, the decoder's (Hq=8, Hkv=2, D=128, T=32) at
+# B = 1 and 2, and the other head dims
+DECODE_CASES = [(1, 32, 8, 64, 89, "full"), (2, 32, 8, 64, 1189, "causal"),
+                (2, 8, 2, 128, 32, "causal"), (2, 4, 2, 16, 70, "causal"),
+                (1, 32, 8, 64, 1189, "mid_tiles"), (2, 4, 2, 32, 500, "mid_tiles"),
+                (1, 32, 8, 64, 1189, "last_split"), (2, 32, 8, 64, 1189, "last_split"),
+                (1, 32, 8, 64, 1189, "live89"), (2, 32, 8, 64, 2048, "live89"),
+                (1, 8, 2, 128, 32, "full"), (2, 32, 8, 64, 281, "shared"),
+                (2, 32, 8, 64, 89, "dead"), (1, 8, 2, 128, 32, "dead")]
+
+
+def _decode_case(B, Hq, Hkv, D, T, pattern, dev, dtype, seed=0):
+    q, k, v, _ = _decode_inputs(B, Hq, Hkv, D, T, seed)
+    mask = torch.from_numpy(decode_pattern_mask(pattern, B, T)).to(dev)
+    return (*(torch.from_numpy(x).to(dev, dtype) for x in (q, k, v)), mask)
+
+
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2**-7)])
-@pytest.mark.parametrize("B,Hq,Hkv,D,T", [(1, 32, 8, 64, 89), (2, 32, 8, 64, 1189),
-                                          (2, 8, 2, 128, 32), (2, 4, 2, 16, 70)])
-def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol, B, Hq, Hkv, D, T):
-    q, k, v, mask = (torch.from_numpy(x).to(cuda) for x in _decode_inputs(B, Hq, Hkv, D, T))
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+@pytest.mark.parametrize("B,Hq,Hkv,D,T,pattern", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol, B, Hq, Hkv, D, T, pattern):
+    q, k, v, mask = _decode_case(B, Hq, Hkv, D, T, pattern, cuda, dtype)
     n = tdec.launches
     got = tdec.decode_gqa_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert tdec.launches == n + 1
     want = tdec.decode_attention_plain(q, k, v, mask)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    assert not got[-1].any()
+    dead = ~mask.expand(B, 1, T)[:, 0].any(-1)
+    assert not got[dead].any()  # a row with no live key gives zeros
+
+
+@pytest.mark.parametrize("T,pattern", [(1189, "live89"), (1189, "full"), (32, "full")])
+def test_decode_kernel_is_deterministic_and_replays_in_a_graph(cuda, T, pattern):
+    """The cluster's partial softmaxes are merged in a fixed order: two
+    launches give the same bytes, and one launch captured in a CUDA graph
+    and replayed gives the eager bytes.  The wrapper counts the captured
+    launch; replays run the kernel without it."""
+    Hq, Hkv, D = (32, 8, 64) if T > 32 else (8, 2, 128)
+    q, k, v, mask = _decode_case(1, Hq, Hkv, D, T, pattern, cuda, torch.bfloat16)
+    a = tdec.decode_gqa_attention(q, k, v, mask)  # also the warm-up: attributes set outside capture
+    b = tdec.decode_gqa_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    n = tdec.launches
+    with torch.cuda.graph(graph):
+        out = tdec.decode_gqa_attention(q, k, v, mask)
+    assert tdec.launches == n + 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tdec.launches == n + 1 and torch.equal(out, a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -340,16 +416,24 @@ def test_flash_autograd_launches_the_kernels(cuda):
     assert all(torch.isfinite(x.float()).all() for x in grads)
 
 
+def _matvec_inputs(K, N, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((K, N)) / K**0.5).astype(np.float32)).to(dev, dtype)
+    return x, w
+
+
 @pytest.mark.parametrize("dtype,rel_atol,rtol", [(torch.float32, 1e-5, 1e-5),
                                                  (torch.bfloat16, 2**-8, 2**-7)])
 @pytest.mark.parametrize("K,N", [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
-                                 (8192, 384), (37, 1000), (300, 8)])
+                                 (8192, 384), (37, 1000), (300, 8), (2080, 2048), (4000, 3072),
+                                 (1000, 16384), (8288, 384)])
 def test_matvec_kernel_matches_plain(cuda, dtype, rel_atol, rtol, K, N):
     """The CSM-1B backbone's four projections, a narrow N, a ragged K and
-    N = 8 (one slab); every slab width the kernel picks."""
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32)).to(cuda, dtype)
-    w = torch.from_numpy((rng.standard_normal((K, N)) / K**0.5).astype(np.float32)).to(cuda, dtype)
+    N = 8 (one span, partly live), and K that the plan splits unevenly over
+    its cluster (65 stages over 16 blocks, 125 over 11, a last stage of 8
+    rows, 259 stages over 16)."""
+    x, w = _matvec_inputs(K, N, cuda, dtype)
     n = tmv.launches
     got = tmv.matvec(x, w)
     torch.cuda.synchronize()
@@ -357,6 +441,27 @@ def test_matvec_kernel_matches_plain(cuda, dtype, rel_atol, rtol, K, N):
     want = tmv.matvec_plain(x, w)
     rms = want.float().pow(2).mean().sqrt().item()
     torch.testing.assert_close(got.float(), want.float(), atol=rel_atol * rms, rtol=rtol)
+
+
+@pytest.mark.parametrize("K,N", [(2048, 16384), (4000, 3072)])
+def test_matvec_kernel_is_deterministic_and_replays_in_a_graph(cuda, K, N):
+    """The split of K is reduced in rank order: two launches give the same
+    bytes, and one launch captured in a CUDA graph and replayed gives the
+    eager bytes.  The wrapper counts the captured launch, not replays."""
+    x, w = _matvec_inputs(K, N, cuda, torch.bfloat16)
+    a = tmv.matvec(x, w)  # also the warm-up: attributes set outside capture
+    b = tmv.matvec(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    n = tmv.launches
+    with torch.cuda.graph(graph):
+        out = tmv.matvec(x, w)
+    assert tmv.launches == n + 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tmv.launches == n + 1 and torch.equal(out, a)
 
 
 def test_matvec_kernel_refuses_what_it_cannot_take(cuda):

@@ -1,7 +1,8 @@
 """The two attention kernels' plain versions, held against the JAX
 package's Pallas kernels run in interpret mode on the CPU (the CUDA kernels
 themselves are held against these plain versions on a card, in
-tests/test_torch_cuda.py).
+tests/test_torch_cuda.py), and the decode kernel's launch plan, which is
+computed here in Python and passed to the kernel.
 
 Float32 on the CPU; tolerances are float32 rounding of sums over at most a
 few hundred keys (2e-5).  The flash forward is also compared in bf16, where
@@ -10,6 +11,10 @@ of its last chunk and returns NaN whenever T is not a multiple of 128, so it
 is compared only at T in {256, 512}; ragged T is held against
 ``gqa_attention`` instead.
 """
+
+import importlib.util
+import inspect
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +27,12 @@ from csm_tpu.ops import decode_attention as jdec
 from csm_tpu.ops import flash_attention as jfa
 from csm_torch.ops import decode_attention as tdec
 from csm_torch.ops import flash_attention as tfa
-from test_torch_cuda import PAD, _decode_inputs, _flash_inputs
+from test_torch_cuda import PAD, _decode_inputs, _flash_inputs, decode_pattern_mask
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)  # stdlib only at import: its shape tables
 
 
 @pytest.fixture
@@ -56,6 +66,49 @@ def test_decode_plain_ragged_T_matches_gqa(T):
         want = jattn.gqa_attention(*map(jnp.asarray, (q, k, v, m)))
         got = tdec.decode_gqa_attention(*map(torch.from_numpy, (q, k, v, m)))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,T,pattern", [
+    (2, 8, 2, 64, 300, "mid_tiles"), (2, 8, 2, 64, 1189, "last_split"),
+    (2, 8, 2, 64, 1189, "live89"), (1, 8, 2, 128, 32, "full"), (3, 8, 2, 64, 281, "shared"),
+    (2, 8, 2, 64, 89, "dead")])
+def test_decode_plain_mask_patterns_match_gqa(B, Hq, Hkv, D, T, pattern):
+    """The masks the card tests hold the kernel to (``decode_pattern_mask``:
+    whole masked tiles mid-cache, live keys only in the last split, 89 live
+    of 1189, the decoder's fresh cache at B=1, a broadcast (1, 1, T) mask,
+    a dead row): the plain version against the JAX package's attention.  A
+    row with no live key gives zeros, as the JAX decode kernel does
+    (``gqa_attention``'s finite NEG_INF gives it the mean of V instead)."""
+    q, k, v, _ = _decode_inputs(B, Hq, Hkv, D, T, seed=T)
+    mask = decode_pattern_mask(pattern, B, T)
+    want = np.asarray(jattn.gqa_attention(*map(jnp.asarray, (q, k, v, mask))))
+    got = tdec.decode_gqa_attention(*map(torch.from_numpy, (q, k, v, mask))).numpy()
+    live = np.broadcast_to(mask, (B, 1, T))[:, 0].any(-1)
+    np.testing.assert_allclose(got[live], want[live], atol=2e-5, rtol=2e-5)
+    assert not got[~live].any() and live.any()
+
+
+def _decode_plan_shapes():
+    shapes = [(s["B"], s["Hkv"], s["T"], s["D"]) for s in chip_smoke.DECODE_SHAPES]
+    return sorted(set(shapes)) + [(1, 1, 1, 16), (3, 2, 70, 16), (4, 8, 100000, 32)]
+
+
+@pytest.mark.parametrize("B,Hkv,T,D", _decode_plan_shapes())
+def test_decode_plan_covers_T(B, Hkv, T, D):
+    """At every phase-3 shape (and a few edges) on the H100's 132 SMs, the
+    plan's splits take whole tiles that cover T exactly, in order, each
+    split at least one tile; at most 16 splits; the grid covers the SMs
+    unless T has too few tiles; and the plan reads shapes only."""
+    plan = tdec.decode_plan(B, Hkv, T, D, 132)
+    assert plan.tile == tdec.tile_keys(D) and 1 <= plan.splits <= tdec.MAX_SPLITS
+    shares = tdec.decode_shares(T, plan)
+    assert shares[0][0] == 0 and shares[-1][1] == T
+    assert all(a < b and a % plan.tile == 0 for a, b in shares)
+    assert all(shares[i][1] == shares[i + 1][0] for i in range(len(shares) - 1))
+    ntiles = -(-T // plan.tile)
+    assert B * Hkv * plan.splits >= 132 or plan.splits == min(tdec.MAX_SPLITS, ntiles)
+    assert tdec.decode_plan(B, Hkv, T, D, 132) == plan
+    assert list(inspect.signature(tdec.decode_plan).parameters) == ["B", "Hkv", "T", "D", "sm_count"]
 
 
 @pytest.mark.parametrize("S,lens", [(256, (200, 256, 0)), (300, (131, 300))])

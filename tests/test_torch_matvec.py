@@ -118,6 +118,34 @@ def test_forward_keeps_the_input_scale():
     assert rms(raw) > 10 * rms(x)
 
 
+def _matvec_plan_shapes():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)  # stdlib only at import: its shape tables
+    shapes = [(K, N) for _, K, N in chip_smoke.MATVEC_SHAPES]
+    return shapes + [(37, 1000), (300, 8), (2080, 2048), (4000, 3072), (1000, 16384), (8288, 384)]
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("K,N", _matvec_plan_shapes())
+def test_matvec_plan_covers_K(K, N, elem_bytes):
+    """At phase 3's shapes and the card tests' uneven ones, on the H100's
+    132 SMs: a block's span is 512 bytes of a row; the cluster's ranks take
+    whole stages that cover K exactly, in order, none empty; at most 16
+    ranks; one wave of blocks at most, the card filled where K and the
+    cluster limit allow; and the plan reads shapes only."""
+    plan = tmv.matvec_plan(K, N, elem_bytes, 132)
+    assert plan.span * elem_bytes == tmv.SPAN_BYTES and 1 <= plan.cluster <= tmv.MAX_CLUSTER
+    shares = tmv.matvec_shares(K, plan)
+    assert len(shares) == plan.cluster and shares[0][0] == 0 and shares[-1][1] == K
+    assert all(a < b and a % plan.stage_rows == 0 for a, b in shares)
+    assert all(shares[i][1] == shares[i + 1][0] for i in range(len(shares) - 1))
+    spans, stages = -(-N // plan.span), -(-K // plan.stage_rows)
+    assert spans * plan.cluster <= 132 or plan.cluster == 1
+    assert spans * (plan.cluster + 1) > 132 or plan.cluster == min(tmv.MAX_CLUSTER, stages)
+    assert tmv.matvec_plan(K, N, elem_bytes, 132) == plan
+
+
 def test_matvec_wrapper_checks_inputs_and_counts_only_launches():
     x, w = map(torch.from_numpy, _inputs(64, 32))
     n = tmv.launches
