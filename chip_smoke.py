@@ -26,7 +26,13 @@ is wrong:
      counts held to what the path must launch; then the quantized path:
      int4 weights at CSM-1B width (generate and generate_batch, int4 kernel
      launches counted) and at 8B width (peak device memory recorded), and
-     short runs of int8, int8-decoder and the int8 KV cache;
+     short runs of int8, int8-decoder and the int8 KV cache.  The Generator
+     runs through its CUDA graphs (the prefill frame and the frame step,
+     replayed), and the launch counts hold under replay; beside each main
+     run (generate_short, generate_long, generate_batch, int4_generate_short,
+     the 8B and the int8-KV runs) the eager loop runs in the same call, in
+     turns, with frames/s, RTF, prefill ms and peak memory of both, and at
+     topk=1 and at topk=50 the two give equal codes;
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -54,6 +60,7 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -734,9 +741,15 @@ LONG_TEXT = (
 )
 
 
+SHORT_TEXT = "Hello from the port."
+BATCH_TEXTS = ["A first, short line.", "And a second line that is a little longer than it."]
+
+
 def phase_main_path(details):
-    """Generator.generate / generate_batch at CSM-1B width in bf16; returns
-    the launch counts of the run."""
+    """Generator.generate / generate_batch at CSM-1B width in bf16 through
+    the CUDA graphs: graph against eager (times, memory, codes at topk=1
+    and 50), then the launch-count window over replays; returns the launch
+    counts of that window."""
     import torch
 
     from csm_torch import csm_1b_args, load_csm
@@ -747,52 +760,175 @@ def phase_main_path(details):
     gen = load_csm(args=args, compute_dtype=torch.bfloat16, text_tokenizer=ByteTokenizer())
     torch.cuda.synchronize()
     details["load_s"] = time.perf_counter() - t0
-    gen.generate("Warm up.", max_audio_length_ms=160)  # first-call set-up, outside the count
-    launches = drive("bf16", gen, [
-        ("generate_short", lambda: [gen.generate("Hello from the port.", max_audio_length_ms=2000)], 1),
+    runs = [  # (run name, callable, batch size)
+        ("generate_short", lambda: [gen.generate(SHORT_TEXT, max_audio_length_ms=2000)], 1),
         ("generate_long", lambda: [gen.generate(LONG_TEXT, speaker=1, max_audio_length_ms=2000)], 1),
-        ("generate_batch", lambda: gen.generate_batch(
-            ["A first, short line.", "And a second line that is a little longer than it."],
-            [0, 1], max_audio_length_ms=2000), 2),
-    ], args, details, ("decode_attention", "flash_attention_fwd"))
+        ("generate_batch", lambda: gen.generate_batch(BATCH_TEXTS, [0, 1], max_audio_length_ms=2000), 2),
+    ]
+    compare_loops("bf16", gen, runs, details)  # also captures every key of the window
+    check_codes_topk1(gen, details)
+    torch.cuda.reset_peak_memory_stats()
+    launches = drive("bf16", gen, runs, args, details, ("decode_attention", "flash_attention_fwd"))
     details["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    details["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     profile_generate(gen, details, "profile")
     free(gen)
     return launches
 
 
+@contextlib.contextmanager
+def token_loop(name):
+    """``Generator``'s frame loop for the body of the block: ``"graphs"``,
+    what it always calls (``generate_audio_tokens_jit``), or ``"eager"``, the
+    reference loop ``generate_audio_tokens`` put in its place at the
+    generator module's name, for the comparisons of this script."""
+    from csm_torch import generator
+    from csm_torch.models import generation
+
+    keep = generator.generate_audio_tokens_jit
+    if name == "eager":
+        generator.generate_audio_tokens_jit = (
+            lambda *a, graphs=None, **kw: generation.generate_audio_tokens(*a, **kw))
+    try:
+        yield
+    finally:
+        generator.generate_audio_tokens_jit = keep
+
+
+def compare_loops(name, gen, runs, details, reps=2):
+    """The graphed entry against the eager loop in one call, on one
+    generator.  First each run's peak device memory under each loop, from
+    an empty graph cache: allocated, and reserved (a graph's pool is
+    reserved memory that its replays use without allocating).  Then every
+    key is captured, and each run is timed ``reps`` times under each loop,
+    interleaved (graphs, eager, then eager, graphs, ...).  The first call
+    under the graphs captures its key: its prefill with the capture
+    (``first_prefill_s``) is what a new key costs.  The codes each loop
+    hands to Mimi at topk 50 from one seed must be equal: the uniforms are
+    drawn by the same call in both."""
+    import torch
+
+    rec = gen.mimi = Recording(gen.mimi)
+    out = {}
+    for run, call, _ in runs:
+        out[run] = {"graphs": [], "eager": [], "memory_gib": {}}
+        for loop in ("eager", "graphs"):
+            gen.graphs.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with token_loop(loop):
+                call()
+            torch.cuda.synchronize()
+            out[run]["memory_gib"][loop] = {
+                "allocated": torch.cuda.max_memory_allocated() / 2**30,
+                "reserved": torch.cuda.max_memory_reserved() / 2**30}
+        st = gen.last_stats
+        out[run]["capture_s"] = st["capture_s"]
+        out[run]["first_prefill_s"] = st["capture_s"] + st["prefill_s"]
+    for run, call, _ in runs:
+        call()  # captures the keys the memory pass dropped
+    for rep in range(reps):
+        for run, call, _ in runs:
+            codes = {}
+            for loop in ("graphs", "eager")[:: 1 if rep % 2 == 0 else -1]:
+                rec.decoded.clear()
+                with token_loop(loop):
+                    call()
+                st = gen.last_stats
+                out[run][loop].append({k: st[k] for k in (
+                    "frames_per_s", "rtf", "prefill_s", "generate_s", "decode_s", "capture_s",
+                    "steps", "frames")})
+                codes[loop] = list(rec.decoded)
+            if len(codes["graphs"]) != len(codes["eager"]) or not all(
+                    a.shape == b.shape and (a == b).all()
+                    for a, b in zip(codes["graphs"], codes["eager"])):
+                gen.mimi = rec.inner
+                raise AssertionError(f"{name} {run}: graph and eager codes differ at topk=50")
+    gen.mimi = rec.inner
+    details[f"{name}_graph_vs_eager"] = out
+    log(f"{name}: graph against eager on {details['card']} ({reps} runs each, interleaved)")
+    for run, r in out.items():
+        for loop in ("graphs", "eager"):
+            xs = r[loop]
+            mem = r["memory_gib"][loop]
+            log(f"  {run:>22} {loop:>6}: frames/s "
+                + " ".join(f"{x['frames_per_s']:.2f}" for x in xs) + ", RTF "
+                + " ".join(f"{x['rtf']:.3f}" for x in xs) + ", prefill ms "
+                + " ".join(f"{1e3 * x['prefill_s']:.1f}" for x in xs) + ", mimi s "
+                + " ".join(f"{x['decode_s']:.3f}" for x in xs)
+                + f", peak {mem['allocated']:.3f} GiB allocated, {mem['reserved']:.3f} reserved")
+        log(f"  {run:>22} first call: capture {r['capture_s']:.3f} s, prefill with it "
+            f"{1e3 * r['first_prefill_s']:.1f} ms; codes equal at topk 50")
+
+
+def check_codes_topk1(gen, details):
+    """At topk=1 the graphed entry and the eager loop hand Mimi the same
+    codes at CSM-1B width (bucket 64, 25 frames)."""
+    rec = gen.mimi = Recording(gen.mimi)
+    try:
+        for loop in ("graphs", "eager"):
+            with token_loop(loop):
+                gen.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+    finally:
+        gen.mimi = rec.inner
+    a, b = rec.decoded
+    if a.shape != b.shape or not (a == b).all():
+        raise AssertionError(f"topk=1: graph codes {a.shape} differ from eager codes {b.shape}")
+    details["topk1_codes_equal_frames"] = int(a.shape[1])
+    log(f"topk=1 at CSM-1B width: graph and eager codes equal over {a.shape[1]} frames")
+
+
 def profile_generate(gen, details, key):
     """Where one generate's time goes (bucket 64, 10 frames, Mimi decode
-    included), under torch.profiler: wall time, summed kernel time (the
-    device's busy time: one stream, so kernels do not overlap) and the
-    kernels that take the most of it.  The profiler slows the host, so the
-    wall time here is above the unprofiled runs'."""
+    included), under torch.profiler, through the eager loop: wall time,
+    summed kernel time (the device's busy time: one stream, so kernels do
+    not overlap) and the kernels that take the most of it.  Then the same
+    generate through the graphs (captured first): wall time, and the
+    kernel time and top kernels if the profiler sees the replays' kernels
+    ("not measured" if it does not).  The profiler slows the host, so the wall times here
+    are above the unprofiled runs'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gen.generate("Profile one short line.", max_audio_length_ms=800)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(getattr(e, "device_type", ""))]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    def run(loop):
+        with token_loop(loop), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gen.generate("Profile one short line.", max_audio_length_ms=800)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))]
+        return wall_ms, kernels, sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def top(kernels, n=10):
+        kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+        return [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in kernels]
+
+    gen.generate("Profile one short line.", max_audio_length_ms=800)  # capture this key
+    wall_g, kernels_g, busy_g = run("graphs")
+    wall_ms, kernels, busy_ms = run("eager")
     int4 = [e for e in kernels if "int4" in e.key]
     int4_ms = sum(e.self_device_time_total for e in int4) / 1e3
     details[key] = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if busy_ms else "not measured",
-        "top_kernels": [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top],
+        "top_kernels": top(kernels),
         "int4_kernel_ms": int4_ms, "int4_launches": sum(e.count for e in int4),
+        "graphs_wall_ms": wall_g,
+        "graphs_device_busy_ms": busy_g if busy_g else "not measured",
+        "graphs_top_kernels": top(kernels_g, 5),
     }
-    log(f"{key}: generate of 10 frames {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
-        f"({len(kernels)} kinds)")
+    log(f"{key}: eager generate of 10 frames {wall_ms:.1f} ms wall, kernels {busy_ms:.1f} ms "
+        f"({len(kernels)} kinds); through the graphs {wall_g:.1f} ms wall, kernels "
+        f"{details[key]['graphs_device_busy_ms']}")
     if int4:
         log(f"  the int4 kernel: {int4_ms:.2f} ms in {details[key]['int4_launches']} launches, "
             f"{100 * int4_ms / busy_ms:.1f} % of the kernel time")
     for name, count, ms in details[key]["top_kernels"]:
+        log(f"  {ms:9.3f} ms {count:6d}x {name}")
+    log("  through the graphs:")
+    for name, count, ms in details[key]["graphs_top_kernels"]:
         log(f"  {ms:9.3f} ms {count:6d}x {name}")
 
 
@@ -834,9 +970,10 @@ def check_audio(name, outs, st):
 
 
 def log_run(name, st, details):
-    log(f"{name} on {details['card']}: bucket {st['prompt_bucket']}, {st['frames']} frames, prefill "
-        f"{st['prefill_s'] * 1e3:.1f} ms, {st['frames_per_s']:.2f} frames/s, "
-        f"generate {st['generate_s']:.3f} s, mimi {st['decode_s']:.3f} s, RTF {st['rtf']:.3f}")
+    log(f"{name} on {details['card']}: graphs, bucket {st['prompt_bucket']}, "
+        f"{st['frames']} frames, prefill {st['prefill_s'] * 1e3:.1f} ms, "
+        f"{st['frames_per_s']:.2f} frames/s, generate {st['generate_s']:.3f} s (capture "
+        f"{st['capture_s']:.3f}), mimi {st['decode_s']:.3f} s, RTF {st['rtf']:.3f}")
     details[name] = st
 
 
@@ -866,7 +1003,12 @@ def drive(name, gen, calls, args, details, needs, kv_int8=False):
     """Drive ``calls`` ((run name, callable, batch size), ...) inside one
     launch-count window: every count is set to 0 just before and read just
     after, then held to what the runs must launch; each kernel in ``needs``
-    must have launched.  Returns the counts."""
+    must have launched.  Under CUDA-graph replay the counters move by the
+    launches each graph recorded at its capture, so the formulas hold with
+    ``steps`` the step replays run; a call that captured its key (none
+    should: the phases capture first) also ran one eager prefill frame and
+    one eager step, counted as a generate of one step.  Returns the
+    counts."""
     from csm_torch.ops.flash_attention import FLASH_MIN_SEQ
 
     quant = gen.params["backbone"]["w13"]
@@ -877,13 +1019,14 @@ def drive(name, gen, calls, args, details, needs, kv_int8=False):
     for sub, call, B in calls:
         outs = call()
         st = dict(gen.last_stats)
-        want["decode_attention"] += decode_expected(args, st, kv_int8)
-        want["flash_attention_fwd"] += (
-            args.backbone.num_layers if st["prompt_bucket"] >= FLASH_MIN_SEQ else 0)
-        if int4:
-            k, d = int4_expected(args, st, B)
-            want["int4_matmul"] += k
-            want["int4_dequant_route"] += d
+        for s in [st] + ([dict(st, steps=1)] if st["capture_s"] else []):
+            want["decode_attention"] += decode_expected(args, s, kv_int8)
+            want["flash_attention_fwd"] += (
+                args.backbone.num_layers if s["prompt_bucket"] >= FLASH_MIN_SEQ else 0)
+            if int4:
+                k, d = int4_expected(args, s, B)
+                want["int4_matmul"] += k
+                want["int4_dequant_route"] += d
         results.append((sub, outs, st))
     got = read_counts()  # the window closes: checks below launch nothing
     if got != want or not all(got[k] for k in needs):
@@ -897,21 +1040,24 @@ def drive(name, gen, calls, args, details, needs, kv_int8=False):
 
 
 def free(gen):
-    """Drop a generator's weights from the card before the next load."""
+    """Drop a generator's graphs, their pools and buffers, and its weights
+    from the card before the next load."""
     import gc
 
     import torch
 
-    gen.params = None
+    gen.close()
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def phase_quantized(details):
-    """The quantized path: int4 at CSM-1B width (generate and generate_batch,
-    with launch counts held to what the path must launch) and at 8B width,
-    then short runs of int8, int8-decoder and the int8 KV cache.  Returns
-    the int4 kernel's launches in the CSM-1B int4 runs."""
+    """The quantized path through the CUDA graphs: int4 at CSM-1B width
+    (graph against eager for generate; generate and generate_batch with
+    launch counts held to what the path must launch) and at 8B width (graph
+    against eager, peak device memory), then short runs of int8,
+    int8-decoder and the int8 KV cache.  Returns the int4 kernel's launches
+    in the CSM-1B int4 runs."""
     import torch
 
     from csm_torch import csm_1b_args, load_csm
@@ -924,17 +1070,16 @@ def phase_quantized(details):
     gen = load_csm(args=args, quantize="int4", text_tokenizer=tok)
     torch.cuda.synchronize()
     details["int4_load_s"] = time.perf_counter() - t0
-    gen.generate("Warm up.", max_audio_length_ms=160)
+    short = ("int4_generate_short", lambda: [gen.generate(SHORT_TEXT, max_audio_length_ms=2000)], 1)
+    batch = ("int4_generate_batch",
+             lambda: gen.generate_batch(BATCH_TEXTS, [0, 1], max_audio_length_ms=2000), 2)
+    compare_loops("int4", gen, [short], details)
+    batch[1]()  # captures the batch key
     torch.cuda.reset_peak_memory_stats()
-    got = drive("int4", gen, [
-        ("int4_generate_short", lambda: [gen.generate("Hello from the port.",
-                                                      max_audio_length_ms=2000)], 1),
-        ("int4_generate_batch", lambda: gen.generate_batch(
-            ["A first, short line.", "And a second line that is a little longer than it."],
-            [0, 1], max_audio_length_ms=2000), 2),
-    ], args, details, ("int4_matmul", "decode_attention"))
+    got = drive("int4", gen, [short, batch], args, details, ("int4_matmul", "decode_attention"))
     int4_launches = got["int4_matmul"]
     details["int4_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    details["int4_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     profile_generate(gen, details, "int4_profile")
     free(gen)
 
@@ -946,25 +1091,31 @@ def phase_quantized(details):
     details["int4_8b_load_s"] = time.perf_counter() - t0
     details["int4_8b_weights_gib"] = torch.cuda.memory_allocated() / 2**30
     details["int4_8b_load_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    gen.generate("Warm up.", max_audio_length_ms=160)
+    run8 = ("int4_8b_generate",
+            lambda: [gen.generate("The eight billion flavor speaks.", max_audio_length_ms=1000)], 1)
+    compare_loops("int4_8b", gen, [run8], details)
     torch.cuda.reset_peak_memory_stats()
-    drive("int4_8b", gen, [("int4_8b_generate", lambda: [gen.generate(
-        "The eight billion flavor speaks.", max_audio_length_ms=1000)], 1)], args8, details,
-        ("int4_matmul", "decode_attention"))
+    drive("int4_8b", gen, [run8], args8, details, ("int4_matmul", "decode_attention"))
     details["int4_8b_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    details["int4_8b_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     log(f"8B int4: load {details['int4_8b_load_s']:.1f} s, weights and codec "
         f"{details['int4_8b_weights_gib']:.2f} GiB, peak while loading "
-        f"{details['int4_8b_load_peak_gib']:.2f} GiB, while generating "
-        f"{details['int4_8b_peak_memory_gib']:.2f} GiB")
+        f"{details['int4_8b_load_peak_gib']:.2f} GiB, while generating through the graphs "
+        f"{details['int4_8b_peak_memory_gib']:.2f} GiB allocated, "
+        f"{details['int4_8b_peak_reserved_gib']:.2f} reserved")
     free(gen)
 
     for mode, kw in (("int8", dict(quantize="int8")), ("int8_decoder", dict(quantize="int8-decoder")),
                      ("kv_int8", dict(kv_int8=True))):
         gen = load_csm(args=args, text_tokenizer=tok, **kw)
-        gen.generate("Warm up.", max_audio_length_ms=160)
-        drive(mode, gen, [(f"{mode}_generate", lambda: [gen.generate(
-            "A short quantized line.", max_audio_length_ms=800)], 1)], args, details,
-            ("decode_attention",), kv_int8=kw.get("kv_int8", False))
+        run = (f"{mode}_generate",
+               lambda: [gen.generate("A short quantized line.", max_audio_length_ms=800)], 1)
+        if mode == "kv_int8":  # its graphs hold each layer's dequantized cache in their pool
+            compare_loops(mode, gen, [run], details)
+        else:
+            run[1]()  # captures the key
+        drive(mode, gen, [run], args, details, ("decode_attention",),
+              kv_int8=kw.get("kv_int8", False))
         free(gen)
     return int4_launches
 

@@ -24,7 +24,12 @@ from csm_torch.data import frames as fr
 from csm_torch.data.tokenizers import MimiAudioTokenizer, load_text_tokenizer
 from csm_torch.models.config import ModelArgs, csm_1b_args, csm_param_count
 from csm_torch.models.csm import fuse_csm_params
-from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length, generate_audio_tokens
+from csm_torch.models.generation import (
+    PROMPT_BUCKETS,
+    GraphCache,
+    bucket_length,
+    generate_audio_tokens_jit,
+)
 from csm_torch.models.llama import fuse_weights
 from csm_torch.utils import quantize as qz
 from csm_torch.utils.device import resolve_device
@@ -91,6 +96,10 @@ class Generator:
     ):
         if mesh is not None:
             raise _waits("sharded inference over a device mesh", "A.11")
+        # generation runs through generate_audio_tokens_jit: on a card the
+        # prefill frame and the frame step as CUDA-graph replays, captured
+        # once per key and kept here
+        self.graphs = GraphCache()
         self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.params = fuse_csm_params(params)
@@ -102,6 +111,12 @@ class Generator:
         self.sample_rate = SAMPLE_RATE
         self.max_seq_len = self.args.backbone.max_seq_len
         self.last_stats: dict = {}
+
+    def close(self) -> None:
+        """Free the captured graphs, their pools and static buffers, and the
+        weights: the card's memory for the next model."""
+        self.graphs.clear()
+        self.params = None
 
     # ---- prompt assembly ----
 
@@ -183,10 +198,10 @@ class Generator:
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         t_tok = time.perf_counter()
-        res = generate_audio_tokens(
+        res = generate_audio_tokens_jit(
             self.params, self.args, tokens, mask, lens, max_frames=max_frames,
             temperature=temperature, topk=topk, compute_dtype=self.compute_dtype,
-            generator=gen, device=self.device, kv_dtype=self.kv_dtype,
+            generator=gen, device=self.device, kv_dtype=self.kv_dtype, graphs=self.graphs,
         )
         frames = res.frames.cpu().numpy()  # (B, max_frames, K)
         nf = res.num_frames.cpu().numpy()
@@ -216,6 +231,7 @@ class Generator:
             "wall_s": wall,
             "tokenize_s": t_tok - t_start,
             "prefill_s": res.prefill_s,
+            "capture_s": res.capture_s,
             "generate_s": t_gen - t_tok,
             "decode_s": time.perf_counter() - t_gen,
             "audio_s": total_audio,

@@ -2,15 +2,16 @@
 
 A Llama-3.2-1B backbone over interleaved text+audio token frames predicts
 the semantic (codebook-0) Mimi token of each 80 ms frame; a Llama-3.2-100M
-decoder fills the other 31 acoustic codebooks, over a fresh 32-slot cache
-per frame.  Same parameter tree as the JAX package's ``models/csm.py``;
-the decoder loop is a Python loop of S=1 steps, and caches are written in
-place.
+decoder fills the other 31 acoustic codebooks, over a 32-slot cache whose
+slots are all rewritten every frame.  Same parameter tree as the JAX
+package's ``models/csm.py``; the decoder loop is a Python loop of S=1
+steps (unrolled inside a CUDA graph's capture, as the JAX ``lax.scan``
+runs inside its program), and caches are written in place.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -93,11 +94,38 @@ def masked_embed_sum(params, args, tokens, tokens_mask, dtype=None) -> torch.Ten
 class FrameState(NamedTuple):
     """Decode-loop state: backbone KV cache (written in place), the number of
     cache columns written, and the position held by each slot (PAD_POS for
-    unwritten / padding slots)."""
+    unwritten / padding slots).  ``offset`` is the first column to write as
+    a Python int, or the S columns as an int64 device tensor (S,): a CUDA
+    graph's frame step, whose column moves from replay to replay."""
 
     cache: KVCache
-    offset: int
+    offset: Union[int, torch.Tensor]
     kv_pos: torch.Tensor  # (B, max_seq) int32
+
+
+class DecoderBuffers(NamedTuple):
+    """The decoder's per-frame state: its K-slot cache, and the constant
+    positions and masks of its K-1 calls.  Every slot is written before a
+    query attends it (slots 0-1 by the S=2 call, slot i by step i), so a
+    cache reused across frames needs no reset."""
+
+    cache: KVCache
+    pos01: torch.Tensor  # (B, 2) int32: positions 0 and 1
+    mask01: torch.Tensor  # (B, 2, K) bool
+    step_pos: torch.Tensor  # (K, B, 1) int32: entry i holds position i
+    step_mask: torch.Tensor  # (K, B, 1, K) bool: entry i is step i's mask
+
+
+def init_decoder_buffers(args: ModelArgs, batch_size: int, dtype, device) -> DecoderBuffers:
+    K = args.audio_num_codebooks
+    cache = init_kv_cache(args.decoder, batch_size, dtype, max_seq_len=K, device=device)
+    kv_pos = torch.arange(K, dtype=torch.int32, device=device)
+    pos01 = kv_pos[:2].expand(batch_size, 2)
+    step_pos = kv_pos[:, None, None].expand(K, batch_size, 1).contiguous()
+    return DecoderBuffers(
+        cache, pos01, causal_mask_from_positions(pos01, kv_pos), step_pos,
+        kv_pos[None, None, None, :] <= step_pos[..., None],
+    )
 
 
 def init_frame_state(
@@ -122,19 +150,31 @@ def generate_frame(
     tokens_mask: torch.Tensor,
     input_pos: torch.Tensor,
     state: FrameState,
-    temperature: float,
+    temperature,
     topk: int,
     compute_dtype=torch.bfloat16,
     last_idx: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    dec_bufs: Optional[DecoderBuffers] = None,
 ) -> Tuple[torch.Tensor, FrameState]:
     """Generate one 32-codebook audio frame.
+
+    Nothing here reads the host or depends on a value that changes from
+    frame to frame when ``state.offset`` is a device tensor and
+    ``uniforms``, ``temperature`` and ``dec_bufs`` are given, so a CUDA
+    graph can capture it once and replay it every frame.
 
     Args:
         tokens/tokens_mask: (B, S, K+1) input frame(s).
         input_pos: (B, S) int32 absolute positions; padding rows carry PAD_POS.
         state: backbone cache state; new K/V are written IN PLACE at
             ``state.offset``.
+        temperature: a float, or a float32 device scalar.
         last_idx: (B,) index of each row's last real prompt row (None → S-1).
+        uniforms: (K, B, 1) float32 draws, one per codebook and row; None →
+            drawn here from ``generator``.
+        dec_bufs: the decoder's buffers (``init_decoder_buffers``); None →
+            fresh ones.
 
     Returns ((B, K) int32 codes, the advanced FrameState).
     """
@@ -142,12 +182,18 @@ def generate_frame(
     bb, dec = args.backbone, args.decoder
     B, S, _ = tokens.shape
     device = tokens.device
-    uniforms = torch.rand((K, B, 1), generator=generator, device=device)
+    if uniforms is None:
+        uniforms = torch.rand((K, B, 1), generator=generator, device=device)
+    if dec_bufs is None:
+        dec_bufs = init_decoder_buffers(args, B, compute_dtype, device)
 
     # ---- backbone step ----
     h = masked_embed_sum(params, args, tokens, tokens_mask).to(compute_dtype)
     kv_pos = state.kv_pos
-    kv_pos[:, state.offset : state.offset + S] = input_pos.to(torch.int32)
+    if isinstance(state.offset, torch.Tensor):
+        kv_pos.index_copy_(1, state.offset, input_pos.to(torch.int32))
+    else:
+        kv_pos[:, state.offset : state.offset + S] = input_pos.to(torch.int32)
     if S >= FLASH_MIN_SEQ:  # the JAX package's cutoff, so both take the same paths
         bb_mask, flash_pos = None, (input_pos.to(torch.int32).contiguous(), kv_pos)
     else:
@@ -164,15 +210,11 @@ def generate_frame(
     c0 = sample_topk(c0_logits, topk, temperature, uniforms=uniforms[0])
     c0_embed = embed_audio(params, args, 0, c0).to(compute_dtype)
 
-    # ---- decoder: fresh K-slot cache per frame ----
-    dec_cache = init_kv_cache(dec, B, compute_dtype, max_seq_len=K, device=device)
-    dec_kv_pos = torch.arange(K, dtype=torch.int32, device=device)
+    # ---- decoder: its K slots rewritten every frame ----
     curr_h = torch.stack([last_h, c0_embed], dim=1)  # (B, 2, E_b)
     proj_h = _matmul(curr_h, params["projection"]).to(compute_dtype)
-    pos01 = torch.arange(2, dtype=torch.int32, device=device).expand(B, 2)
     dec_h, _ = transformer_apply(
-        params["decoder"], dec, proj_h, pos01, causal_mask_from_positions(pos01, dec_kv_pos),
-        dec_cache, 0,
+        params["decoder"], dec, proj_h, dec_bufs.pos01, dec_bufs.mask01, dec_bufs.cache, 0,
     )
     c1_logits = _matmul(dec_h[:, -1, :], params["audio_head"][0]).float()
     samples = [c0, sample_topk(c1_logits, topk, temperature, uniforms=uniforms[1])]
@@ -181,10 +223,9 @@ def generate_frame(
     for i in range(2, K):
         emb = embed_audio(params, args, i - 1, samples[-1])[:, None, :]
         proj = _matmul(emb, params["projection"]).to(compute_dtype)
-        pos = torch.full((B, 1), i, dtype=torch.int32, device=device)
         dh, _ = transformer_apply(
-            params["decoder"], dec, proj, pos, causal_mask_from_positions(pos, dec_kv_pos),
-            dec_cache, i,
+            params["decoder"], dec, proj, dec_bufs.step_pos[i], dec_bufs.step_mask[i],
+            dec_bufs.cache, i,
         )
         logits = _matmul(dh[:, -1, :], params["audio_head"][i - 1]).float()
         samples.append(sample_topk(logits, topk, temperature, uniforms=uniforms[i]))

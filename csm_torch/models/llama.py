@@ -23,7 +23,7 @@ An int8 (QuantKV) cache is dequantized for the flash and plain routes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -112,7 +112,7 @@ def _layer_forward(
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],
     kv_layer: Optional[Tuple[torch.Tensor, torch.Tensor]],
-    cache_offset: Optional[int],
+    cache_offset: Union[int, torch.Tensor, None],
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One transformer block; writes this layer's K/V into ``kv_layer`` in
@@ -162,7 +162,7 @@ def transformer_apply(
     positions: torch.Tensor,
     mask: Optional[torch.Tensor],
     cache: Optional[KVCache] = None,
-    cache_offset: Optional[int] = None,
+    cache_offset: Union[int, torch.Tensor, None] = None,
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -174,8 +174,9 @@ def transformer_apply(
         mask: (B, S, T) bool attention mask (T = cache length when cached);
             None when ``flash_pos`` is given.
         cache: optional KVCache; new K/V are written IN PLACE at
-            ``cache_offset`` (a Python int) and attention runs over the
-            whole cache.
+            ``cache_offset`` (the first column as a Python int, or the S
+            columns as an int64 device tensor: ``update_layer``) and
+            attention runs over the whole cache.
         flash_pos: optional (q_pos (B, S) int32, kv_pos (T,) | (B, T) int32):
             attend through the flash kernels, masked from positions: over
             the cache when there is one, else over this call's own K/V (the

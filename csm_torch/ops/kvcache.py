@@ -3,7 +3,9 @@
 Layout (num_layers, batch, max_seq, num_kv_heads, head_dim), as in the JAX
 package.  Unlike the functional JAX cache, the port writes new keys and
 values IN PLACE: ``update_layer`` mutates the cache tensors it is given and
-returns them.
+returns them.  The write column is a Python int (a slice) or a device index
+tensor (``index_copy_``), the second for a CUDA graph that replays one
+capture at a column that moves from frame to frame.
 
 int8 (``QuantKV``): keys and values are quantized when they are written,
 with one symmetric float32 scale per (batch, position, kv head) row over
@@ -94,19 +96,27 @@ def update_layer(
     v_cache: KVHalf,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    offset: int,
+    offset: Union[int, torch.Tensor],
 ):
     """Write (B, S, Hkv, D) keys/values into one layer's (B, Smax, Hkv, D)
-    cache at column ``offset``, in place; returns the two cache halves.  A
-    QuantKV cache quantizes the new rows here."""
+    cache in place; returns the two cache halves.  ``offset`` is the first
+    column as a Python int, or the S columns as an int64 device tensor
+    (S,).  A QuantKV cache quantizes the new rows here."""
     S = k_new.shape[1]
-    cols = slice(offset, offset + S)
+    if isinstance(offset, torch.Tensor):
+        def write(dst, src):
+            dst.index_copy_(1, offset, src.to(dst.dtype))
+    else:
+        cols = slice(offset, offset + S)
+
+        def write(dst, src):
+            dst[:, cols] = src.to(dst.dtype)
     if isinstance(k_cache, QuantKV):
         for cache, new in ((k_cache, k_new), (v_cache, v_new)):
             qn = quantize_kv_rows(new)
-            cache.q[:, cols] = qn.q
-            cache.s[:, cols] = qn.s
+            write(cache.q, qn.q)
+            write(cache.s, qn.s)
         return k_cache, v_cache
-    k_cache[:, cols] = k_new.to(k_cache.dtype)
-    v_cache[:, cols] = v_new.to(v_cache.dtype)
+    write(k_cache, k_new)
+    write(v_cache, v_new)
     return k_cache, v_cache

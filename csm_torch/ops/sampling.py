@@ -23,14 +23,17 @@ def topk_mask(logits: torch.Tensor, topk: int) -> torch.Tensor:
 def sample_topk(
     logits: torch.Tensor,
     topk: int,
-    temperature: float,
+    temperature,
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(..., vocab) logits → (...,) int32 token ids.
 
-    ``uniforms``: optional (..., 1) float32 draws in [0, 1); when None they
-    are drawn with ``generator`` on the logits' device."""
+    ``temperature``: a float, or a float32 device scalar (a CUDA graph's
+    frame step reads it from a buffer, so one capture serves every
+    temperature).  ``uniforms``: optional (..., 1) float32 draws in
+    [0, 1); when None they are drawn with ``generator`` on the logits'
+    device."""
     logits = logits.float() / temperature
     vals, idx = torch.topk(logits, topk, dim=-1)  # sorted descending
     c = torch.cumsum(torch.softmax(vals, dim=-1), dim=-1)

@@ -8,8 +8,9 @@ source trees, in turns.
 ``DIR`` is another checkout of this repository (e.g. an unpacked
 ``git archive`` of a parent commit).  Each run is a fresh process on the
 card that loads CSM-1B on random weights (seed 0) in one weight mode, warms
-up, then times ``repeats`` generates of 2000 ms of audio (prompt bucket 64,
-B=1, topk 50).  The order is other, this, this, other for bf16 and, for the
+up with a generate of the timed shape (which captures its CUDA graphs in a
+tree that has them), then times ``repeats`` generates of 2000 ms of audio
+(prompt bucket 64, B=1, topk 50).  The order is other, this, this, other for bf16 and, for the
 other modes (this tree only), mode, bf16, bf16, mode in the middle, so drift
 of the host's speed cancels in the comparison.  Each run prints one JSON
 line; the card's name and power limit come first, a summary of medians
@@ -49,7 +50,7 @@ from csm_torch.data.tokenizers import ByteTokenizer
 mode, repeats = sys.argv[1], int(sys.argv[2])
 kw = {} if mode == "none" else {"quantize": mode}
 gen = load_csm(args=csm_1b_args(), text_tokenizer=ByteTokenizer(), **kw)
-gen.generate("Warm up.", max_audio_length_ms=160)
+gen.generate("Warm up.", max_audio_length_ms=2000)  # the timed key: captures its graphs
 runs = []
 for _ in range(repeats):
     gen.generate("Hello from the port.", max_audio_length_ms=2000)

@@ -499,3 +499,183 @@ def test_flash_bwd_float32_stays_on_cuda_cores(cuda):
     1e-5 of each gradient's RMS: the CUDA-core route.  Inputs rounded to bf16
     (or TF32) for a tensor core would miss by ~1e-3."""
     _bwd_check(512, 512, 32, 8, 64, torch.float32, 1e-5, 1e-5)
+
+
+# ---------------------------------------------------------------- CUDA graphs
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 16384), (2, 1024, 1536), (64, 2048, 3072)])
+def test_int4_kernel_replays_in_a_graph(cuda, M, K, N):
+    """A cluster launch captured in a CUDA graph and replayed gives the
+    eager bytes: one decode row, the decoder's S=2 call and a 64-row
+    prefill.  The wrapper counts the captured launch, not the replay."""
+    x, q = _int4_inputs(M, K, N, 128, cuda, torch.bfloat16)
+    a = tint4.fused_int4_matmul(x, q)  # also the warm-up: attributes set outside capture
+    graph = torch.cuda.CUDAGraph()
+    n = tint4.launches
+    with torch.cuda.graph(graph):
+        out = tint4.fused_int4_matmul(x, q)
+    assert tint4.launches == n + 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tint4.launches == n + 1 and torch.equal(out, a)
+
+
+@pytest.mark.parametrize("lens", [(200,), (200, 150)])
+def test_flash_fwd_replays_in_a_graph(cuda, lens):
+    """The prefill's flash forward (bucket 256 over a 281-slot cache)
+    captured and replayed gives the eager bytes of O and L."""
+    q, k, v, q_pos, kv_pos = (torch.from_numpy(x).to(cuda)
+                              for x in _flash_inputs(256, 281, lens, 32, 8, 64))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    a, la = tfa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    graph = torch.cuda.CUDAGraph()
+    n = tfa.launches
+    with torch.cuda.graph(graph):
+        out, lse = tfa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    out.zero_()
+    lse.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tfa.launches == n + 1 and torch.equal(out, a) and torch.equal(lse, la)
+
+
+def _tiny_generation(dev, mode, bucket):
+    """A tiny bf16 CSM on the card (int4 at group 32), fused, with a 512-slot
+    backbone for the 256 bucket."""
+    import dataclasses
+
+    from csm_torch.models import config
+    from csm_torch.models.csm import fuse_csm_params
+    from csm_torch.utils.params import cast_params, random_csm_params
+    from csm_torch.utils.quantize import quantize_csm_params_int4
+
+    args = config.tiny_test_args()
+    if bucket > 128:
+        args = dataclasses.replace(
+            args, backbone_config=dataclasses.replace(args.backbone, max_seq_len=512))
+    params = cast_params(random_csm_params(args, seed=0, device=dev), torch.bfloat16)
+    if mode == "int4":
+        params = quantize_csm_params_int4(params, group_size=32)
+    return args, fuse_csm_params(params)
+
+
+def _tiny_prompts(args, B, bucket, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    lens = np.asarray([bucket - 10, bucket - 40][:B], np.int32)
+    tokens = np.zeros((B, bucket, K + 1), np.int32)
+    mask = np.zeros((B, bucket, K + 1), bool)
+    for b, n in enumerate(lens):
+        tokens[b, :n, -1] = rng.integers(1, args.text_vocab_size, n)
+        mask[b, :n, -1] = True
+    return tuple(torch.from_numpy(x).to(dev) for x in (tokens, mask, lens))
+
+
+@pytest.mark.parametrize("bucket", [64, 256])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("mode", ["bf16", "int4", "kv_int8"])
+def test_generation_graphs_match_eager(cuda, mode, B, bucket):
+    """The graphed entry (capture, then replays) against the eager loop on
+    one seed: codes equal at topk=1 and at topk=50, and a second call on the
+    captured graphs gives them again."""
+    from csm_torch.models import generation as tgen
+
+    args, params = _tiny_generation(cuda, mode, bucket)
+    prompts = _tiny_prompts(args, B, bucket, cuda)
+    for topk in (1, 50):
+        kw = dict(max_frames=tgen.CHUNK + 3, temperature=0.9, topk=topk,
+                  compute_dtype=torch.bfloat16, device=cuda,
+                  kv_dtype=torch.int8 if mode == "kv_int8" else None)
+        eager = tgen.generate_audio_tokens(
+            params, args, *prompts, generator=torch.Generator(cuda).manual_seed(5), **kw)
+        cache = tgen.GraphCache()
+        runs = [tgen.generate_audio_tokens_jit(
+            params, args, *prompts, generator=torch.Generator(cuda).manual_seed(5), graphs=cache,
+            **kw) for _ in range(2)]
+        assert runs[0].capture_s > 0 and runs[1].capture_s == 0
+        for r in runs:
+            assert torch.equal(r.frames, eager.frames), f"topk={topk}"
+            assert torch.equal(r.num_frames, eager.num_frames)
+        cache.clear()
+
+
+def test_one_frame_generation_captures_the_prefill_only(cuda, monkeypatch):
+    """At ``max_frames`` 1 the frame step never runs: only the prefill is
+    warmed up and captured (a step would write past the one-frame buffer),
+    and the graphed entry and ``Generator.generate`` give the eager loop's
+    frame."""
+    from csm_torch import generator as tgenr
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.models import generation as tgen
+
+    args, params = _tiny_generation(cuda, "bf16", 64)
+    prompts = _tiny_prompts(args, 2, 64, cuda)
+    kw = dict(max_frames=1, compute_dtype=torch.bfloat16, device=cuda)
+    eager = tgen.generate_audio_tokens(
+        params, args, *prompts, generator=torch.Generator(cuda).manual_seed(5), **kw)
+    cache = tgen.GraphCache()
+    for _ in range(2):
+        r = tgen.generate_audio_tokens_jit(
+            params, args, *prompts, generator=torch.Generator(cuda).manual_seed(5), graphs=cache,
+            **kw)
+        assert r.steps == 0 and torch.equal(r.frames, eager.frames)
+        assert torch.equal(r.num_frames, eager.num_frames)
+    (fg,) = cache._items.values()
+    assert len(fg.graphs) == 1
+    cache.clear()
+    torch.cuda.synchronize()
+
+    g = tgenr.load_csm(args=args, compute_dtype=torch.bfloat16, device=cuda,
+                       text_tokenizer=ByteTokenizer())
+    graphed = g.generate("hello there", max_audio_length_ms=80, seed=3)
+    assert g.last_stats["steps"] == 0 and g.last_stats["capture_s"] > 0
+    monkeypatch.setattr(tgenr, "generate_audio_tokens_jit",
+                        lambda *a, graphs=None, **k: tgen.generate_audio_tokens(*a, **k))
+    np.testing.assert_array_equal(graphed, g.generate("hello there", max_audio_length_ms=80, seed=3))
+    g.close()
+    torch.cuda.synchronize()
+
+
+def test_replays_add_the_captured_launch_counts(cuda):
+    """Each graph records the kernel launches its capture saw; the capture
+    itself leaves the counters as they were, and every replay adds its
+    graph's counts: after a generate of N steps the counters moved by the
+    prefill's counts plus N times the step's."""
+    from csm_torch.models import generation as tgen
+
+    args, params = _tiny_generation(cuda, "int4", 64)
+    prompts = _tiny_prompts(args, 1, 64, cuda)
+    kw = dict(max_frames=2 * tgen.CHUNK + 2, compute_dtype=torch.bfloat16, device=cuda)
+    cache = tgen.GraphCache()
+    tgen.generate_audio_tokens_jit(params, args, *prompts, graphs=cache, **kw)
+    (fg,) = cache._items.values()
+    (_, prefill), (_, step) = fg.graphs
+    K, L_bb, L_dec = args.audio_num_codebooks, args.backbone.num_layers, args.decoder.num_layers
+    int4_frame = 4 * L_bb + 4 * L_dec * (K - 1)  # the 64-row prefill takes the kernel too
+    # counters: decode, flash forward, int4, int4 dequant route
+    assert step == [L_bb + (K - 2) * L_dec, 0, int4_frame, 0]
+    assert prefill == [(K - 2) * L_dec, 0, int4_frame, 0]
+    before = tgen._counts()
+    res = tgen.generate_audio_tokens_jit(params, args, *prompts, graphs=cache, **kw)
+    torch.cuda.synchronize()
+    assert res.capture_s == 0 and res.steps == 2 * tgen.CHUNK + 1
+    assert tgen._counts() == [b + p + res.steps * s for b, p, s in zip(before, prefill, step)]
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A frame step that reads the host cannot be captured: the graphed
+    entry raises, and nothing runs the eager loop in its place."""
+    from csm_torch.models import generation as tgen
+
+    args, params = _tiny_generation(cuda, "bf16", 64)
+    prompts = _tiny_prompts(args, 1, 64, cuda)
+    monkeypatch.setattr(tgen.FrameGraphs, "step", lambda fg: fg.done.all().item())
+    monkeypatch.setattr(tgen, "generate_audio_tokens", None)
+    stream = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError):
+        tgen.generate_audio_tokens_jit(params, args, *prompts, max_frames=3,
+                                       compute_dtype=torch.bfloat16, device=cuda)
+    assert torch.cuda.current_stream() == stream
+    torch.cuda.synchronize()
