@@ -33,6 +33,17 @@ is wrong:
      the 8B and the int8-KV runs) the eager loop runs in the same call, in
      turns, with frames/s, RTF, prefill ms and peak memory of both, and at
      topk=1 and at topk=50 the two give equal codes;
+  4b. the user's path from files at CSM-1B width: a 3.1 GB bf16 torchtune
+     ``ckpt.pt`` of seed 0's weights and SilentCipher-layout files in a
+     temporary directory; ``csm-torch-generate`` run in process from them
+     (the loaded weights bit-equal to the written ones, codes equal to the
+     in-memory model's at topk=1, decode launches held to phase 4's
+     formula, load seconds and RTF with and without the watermark); the
+     ``csm-torch-verify`` CLI on its wav (exit 0 or 1: random weights); on
+     the port's random watermark weights the key recovered on the card with
+     the CNN bypassed, ``encode_wav`` and the decoder's logits card against
+     CPU, ``encode_wav`` ms and ``decode_wav`` (52 shifts) seconds, TFLOP/s
+     and peak memory at 10 s and 60 s;
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -1051,6 +1062,300 @@ def free(gen):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 4b
+
+
+# the card's watermark against the CPU's, float32 with TF32 off on both, on
+# the port's random weights (normal / sqrt(fan_in)) and speech-band audio
+# over a noise floor: encode_wav within this share of the input's peak (the
+# watermark is ~2e-2 of it), the message decoder's logits within this share
+# of their largest (TF32 would give ~1e-3), with equal argmax.  The
+# SilentCipher-layout test files (weights 0.1 * normal) are not used for
+# this: their message decoder amplifies float32 rounding layer by layer
+# until float32 and float64 logits part on the CPU alone.
+WM_ENCODE_SHARE = 1e-5
+WM_LOGIT_SHARE = 1e-5
+WM_KEY = [212, 211, 146, 56, 201]  # the public CSM key
+
+
+def write_silentcipher(ckpt_dir, seed=0):
+    """Random SilentCipher checkpoints in its exact layout (``main.{i}``
+    gated convs with BatchNorm and a linear; the message decoder's convs at
+    odd indices, Dropout between them): enc_c.ckpt, dec_c.ckpt,
+    dec_m_0.ckpt."""
+    import os
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def gated(prefix, out_ch, in_ch, k):
+        return {f"{prefix}.{name}": t for name, t in (
+            ("conv.weight", torch.randn(out_ch, in_ch, k, k, generator=g) * 0.1),
+            ("conv.bias", torch.zeros(out_ch)),
+            ("gate.weight", torch.randn(out_ch, in_ch, k, k, generator=g) * 0.1),
+            ("gate.bias", torch.zeros(out_ch)),
+            ("bn.weight", torch.ones(out_ch)), ("bn.bias", torch.zeros(out_ch)),
+            ("bn.running_mean", torch.zeros(out_ch)), ("bn.running_var", torch.ones(out_ch)))}
+
+    enc = {**gated("main.0", 32, 1, 3), **gated("main.1", 32, 32, 3), **gated("main.2", 32, 32, 3),
+           "linear.weight": torch.randn(512, 5, generator=g) * 0.05, "linear.bias": torch.zeros(512)}
+    dec_c = {**gated("main.0", 96, 96, 3), **gated("main.1", 96, 96, 3),
+             **gated("main.2", 96, 96, 3), **gated("main.3", 1, 96, 1)}
+    dec_m = gated("main.1", 128, 1, 3)
+    for i in range(8):
+        dec_m.update(gated(f"main.{3 + 2 * i}", 128, 128, 3))
+    dec_m.update(gated("main.19", 5, 128, 3))
+    dec_m.update({"linear.weight": torch.randn(1, 512, generator=g) * 0.05,
+                  "linear.bias": torch.zeros(1)})
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for name, state in (("enc_c.ckpt", enc), ("dec_c.ckpt", dec_c), ("dec_m_0.ckpt", dec_m)):
+        torch.save(state, os.path.join(ckpt_dir, name))
+
+
+def speech_band(seconds, sr=24_000, seed=0):
+    """Tones in the speech band plus a little noise, float32."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    x = sum(0.05 * np.sin(2 * np.pi * f * t) for f in (180, 420, 950, 2300))
+    return (x + 0.005 * np.random.default_rng(seed).standard_normal(t.size)).astype(np.float32)
+
+
+def no_shift_logits(w, audio, sr):
+    """The message decoder's logits that ``decode_wav`` reads without the
+    phase-shift search, through its ``_decode_frames`` seam."""
+    keep = {}
+    inner = w._decode_frames
+
+    def record(params, y):
+        keep["logits"] = out = inner(params, y)
+        return out
+
+    w._decode_frames = record
+    try:
+        w.decode_wav(audio, sr, phase_shift_decoding=False)
+    finally:
+        del w._decode_frames
+    return keep["logits"].cpu().numpy()
+
+
+def decode_flops(w, num_samples: int) -> float:
+    """Multiply-adds × 2 of the message decoder's convolutions for one
+    shift of ``num_samples`` at the model rate (both convs of each gated
+    layer over the message band and every STFT frame)."""
+    pixels = w.message_band_size * w._n_frames(num_samples)
+    return sum(2 * 2 * g.w.numel() * pixels for g in w.params["dec_m"]["layers"])
+
+
+def phase_files(details):
+    """The user's path from files at CSM-1B width: a bf16 torchtune
+    ``ckpt.pt`` (3.1 GB) written from the random weights of seed 0 and
+    SilentCipher files, in a temporary directory; ``csm-torch-generate``
+    run in process from them (weights bit-equal to the in-memory model's,
+    codes equal to its at topk=1, decode launches held); the verify CLI on
+    its wav; then on the port's random watermark weights, the protocol on
+    the card with the CNN bypassed, the watermark card against CPU, and
+    encode and decode times and peak memory at 10 s and 60 s."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from csm_torch import csm_1b_args, load_csm
+    from csm_torch.cli import generate as cli
+    from csm_torch.data.audio import load_wav
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.utils.checkpoint_compat import export_to_torch_names
+    from csm_torch.utils.params import cast_params, random_csm_params
+    from csm_torch.watermarking import model as wm
+    from csm_torch.watermarking import watermarker as wmk
+
+    args = csm_1b_args()
+    rec = details["files"] = {}
+    with tempfile.TemporaryDirectory(prefix="csm_files_") as tmp:
+        ckpt, sc, wav = (os.path.join(tmp, n) for n in ("ckpt.pt", "silentcipher", "out.wav"))
+        t0 = time.perf_counter()
+        params = cast_params(random_csm_params(args, 0, device="cuda"), torch.bfloat16)
+        state = {k: v.to(torch.bfloat16) for k, v in export_to_torch_names(params, args).items()}
+        del params
+        torch.save(state, ckpt)
+        rec["ckpt_bytes"] = os.path.getsize(ckpt)
+        rec["ckpt_params"] = sum(v.numel() for v in state.values())
+        del state
+        write_silentcipher(sc)
+        rec["write_s"] = time.perf_counter() - t0
+        log(f"files: ckpt.pt {rec['ckpt_bytes'] / 1e9:.3f} GB ({rec['ckpt_params'] / 1e9:.4f} B "
+            f"bf16 parameters) and SilentCipher files written in {rec['write_s']:.1f} s")
+
+        # csm-torch-generate in process, its generator kept and its codec recorded
+        built = []
+        real_build = cli.build_generator
+
+        def build(a):
+            t = time.perf_counter()
+            g = real_build(a)
+            torch.cuda.synchronize()
+            built.append((g, time.perf_counter() - t))
+            g.mimi = Recording(g.mimi)
+            return g
+
+        argv = ["--model-path", ckpt, "--watermark-ckpt", sc, "--allow-byte-tokenizer",
+                "--topk", "1", "--text", SHORT_TEXT, "--max-audio-length-ms", "2000",
+                "--output", wav]
+        cli.build_generator = build
+        reset_counts()  # the window opens: the CLI's load, generate, watermark
+        try:
+            if cli.main(argv) != 0:
+                raise AssertionError("csm-torch-generate failed")
+        finally:
+            cli.build_generator = real_build
+        got = read_counts()
+        gen, rec["load_s"] = built[0]
+        st = dict(gen.last_stats)
+        want = dict.fromkeys(got, 0)
+        for s in [st] + ([dict(st, steps=1)] if st["capture_s"] else []):
+            want["decode_attention"] += decode_expected(args, s)
+        if got != want:
+            raise AssertionError(f"csm-torch-generate: launches {got}, the path needs {want}")
+        audio, sr = load_wav(wav)
+        if sr != 24_000 or len(audio) != st["frames"] * 1920 or not np.isfinite(audio).all():
+            raise AssertionError(f"csm-torch-generate wrote {len(audio)} samples at {sr} Hz "
+                                 f"for {st['frames']} frames")
+        rec["cli"] = {k: st[k] for k in ("rtf", "frames_per_s", "wall_s", "watermark_s",
+                                         "capture_s", "prefill_s", "frames")}
+        rec["cli_launches"] = got
+        log(f"csm-torch-generate from files on {details['card']}: load {rec['load_s']:.2f} s, "
+            f"{st['frames']} frames, first call (capture {st['capture_s']:.3f} s) RTF "
+            f"{st['rtf']:.3f} with the watermark ({1e3 * st['watermark_s']:.1f} ms); "
+            f"launches {got}")
+
+        # the same weights made in memory: bit-equal trees, equal codes
+        mem = load_csm(args=args, compute_dtype=torch.bfloat16, text_tokenizer=ByteTokenizer())
+        mem.mimi = Recording(mem.mimi)
+        mem.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+        for comp in ("backbone", "decoder"):
+            for k, v in mem.params[comp].items():
+                if not torch.equal(gen.params[comp][k], v):
+                    raise AssertionError(f"{comp}.{k} from ckpt.pt differs from the written weights")
+        for k in ("text_embeddings", "audio_embeddings", "projection", "codebook0_head",
+                  "audio_head"):
+            if not torch.equal(gen.params[k], mem.params[k]):
+                raise AssertionError(f"{k} from ckpt.pt differs from the written weights")
+        (a,), (b,) = gen.mimi.decoded, mem.mimi.decoded
+        if a.shape != b.shape or not (a == b).all():
+            raise AssertionError("csm-torch-generate's codes differ from the in-memory model's")
+        free(mem)
+        log(f"  weights from ckpt.pt equal the written ones bit for bit; codes equal the "
+            f"in-memory model's over {a.shape[1]} frames at topk=1")
+
+        # warm: the CLI's generator with and without its watermark, in turns
+        wm_fn, runs = gen.watermarker, {"watermark": [], "none": []}
+        for rep in range(2):
+            for name in ("watermark", "none")[:: 1 if rep == 0 else -1]:
+                gen.watermarker = wm_fn if name == "watermark" else None
+                gen.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+                runs[name].append({k: gen.last_stats[k] for k in ("rtf", "watermark_s",
+                                                                  "frames_per_s")})
+        rec["warm"] = runs
+        log("  warm generate, RTF with the watermark "
+            + " ".join(f"{x['rtf']:.3f}" for x in runs["watermark"]) + " (watermark ms "
+            + " ".join(f"{1e3 * x['watermark_s']:.1f}" for x in runs["watermark"])
+            + "), without " + " ".join(f"{x['rtf']:.3f}" for x in runs["none"]))
+        free(gen)
+
+        # csm-torch-verify on the wav, its own process
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "csm_torch.cli.verify", wav,
+                            "--watermark-ckpt", sc], cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        rec["verify_cli"] = {"returncode": r.returncode, "s": time.perf_counter() - t0}
+        if r.returncode not in (0, 1):
+            raise AssertionError(f"csm-torch-verify exited {r.returncode}:\n{r.stdout}{r.stderr}")
+        log(f"  csm-torch-verify on the wav: exit {r.returncode} (random CNN weights) in "
+            f"{rec['verify_cli']['s']:.1f} s, process start included")
+
+    # the protocol on the card with the CNN bypassed: the 52-shift search
+    # over a tiling of the key that starts mid-period
+    precision = torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision
+    rec["process_fp32_precision"] = {"cudnn.conv": precision[0], "cuda.matmul": precision[1]}
+    log(f"  the process's float32 precision: cuDNN convolutions {precision[0]!r}, matmuls "
+        f"{precision[1]!r}; the watermarker runs 'ieee' inside its calls")
+    weights = wm.init_watermark_params(torch.Generator().manual_seed(0))
+    card = wmk.Watermarker(weights)
+    host = wmk.Watermarker(weights, device="cpu")
+    sym = wmk.bytes_to_symbols(WM_KEY)
+
+    def tiled(params, y):
+        n = card._n_frames(y.shape[1])
+        t = wmk.tile_message(sym, card.message_dim, n + 7)[:, 7:]
+        return torch.from_numpy(np.repeat(t[None], y.shape[0], axis=0)).to(y.device)
+
+    card._decode_frames = tiled
+    try:
+        found = wmk.verify(card, speech_band(2.0), 24_000, WM_KEY)
+    finally:
+        del card._decode_frames
+    if not found:
+        raise AssertionError("the bypassed-CNN protocol did not recover the key on the card")
+
+    # card against CPU
+    audio = speech_band(2.0)
+    enc_card = card.encode_wav(audio, 24_000, WM_KEY)
+    enc_host = host.encode_wav(audio, 24_000, WM_KEY)
+    enc_err = float(np.abs(enc_card - enc_host).max())
+    if not enc_err <= WM_ENCODE_SHARE * np.abs(audio).max():
+        raise AssertionError(f"encode_wav card against CPU: {enc_err:.3e}")
+    lc, lh = no_shift_logits(card, enc_host, 24_000), no_shift_logits(host, enc_host, 24_000)
+    logit_err = float(np.abs(lc - lh).max())
+    if not (logit_err <= WM_LOGIT_SHARE * np.abs(lh).max()
+            and (lc.argmax(1) == lh.argmax(1)).all()):
+        raise AssertionError(f"decode logits card against CPU: {logit_err:.3e}")
+    rec["card_vs_cpu"] = {"encode_max_abs_err": enc_err, "logits_max_abs_err": logit_err,
+                          "frames": int(lc.shape[-1])}
+    log(f"  watermark card against CPU (2 s): encode max |diff| {enc_err:.2e}, logits "
+        f"{logit_err:.2e} over {lc.shape[-1]} frames, argmax equal; key recovered on the card "
+        f"with the CNN bypassed")
+
+    # times and memory
+    ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        card.encode_wav(audio, 24_000, WM_KEY)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rec["encode_ms_2s"] = ms[1:]
+    for seconds in (10, 60):
+        clip = speech_band(seconds, seed=seconds)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card.decode_wav(clip, 24_000)
+        dt = time.perf_counter() - t0
+        shifts = len(range(0, card.hop, 10))
+        flops = shifts * decode_flops(card, seconds * wmk.MODEL_SR - (shifts - 1) * 10)
+        rec[f"decode_{seconds}s"] = {
+            "s": dt, "shifts": shifts, "conv_tflop": flops / 1e12,
+            "conv_tflop_per_s": flops / 1e12 / dt,
+            "shifts_per_chunk": card.shifts_per_chunk(seconds * wmk.MODEL_SR),
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    del card, host
+    torch.cuda.empty_cache()
+    if (torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cuda.matmul.fp32_precision) != precision:
+        raise AssertionError("the watermarker left the process's float32 precision changed")
+    log(f"  encode_wav of 2 s on the card: ms " + " ".join(f"{x:.1f}" for x in ms[1:]))
+    for seconds in (10, 60):
+        d = rec[f"decode_{seconds}s"]
+        log(f"  decode_wav of {seconds} s ({d['shifts']} shifts, {d['shifts_per_chunk']} a "
+            f"chunk): {d['s']:.2f} s, {d['conv_tflop']:.1f} TFLOP of convolutions, "
+            f"{d['conv_tflop_per_s']:.1f} TFLOP/s against 67 for float32 outside the tensor "
+            f"cores; peak {d['peak_allocated_gib']:.2f} GiB allocated, "
+            f"{d['peak_reserved_gib']:.2f} reserved")
+
+
 def phase_quantized(details):
     """The quantized path through the CUDA graphs: int4 at CSM-1B width
     (graph against eager for generate; generate and generate_batch with
@@ -1557,6 +1862,7 @@ def main() -> int:
         kernels = phase_kernels(dev, flush, details)
         del flush
         launches = phase_main_path(details)
+        phase_files(details)
         launches["int4_matmul"] = phase_quantized(details)
         phase_reference(details)
         launches.update(phase_training(details, dev))

@@ -1,5 +1,6 @@
-"""Shared CLI helpers (what ``csm-torch-train`` needs): the parallelism,
-tiny-test and device flags, and the tiny random Mimi codec."""
+"""Shared CLI helpers: the voice presets, the parallelism, tiny-test and
+device flags, the tiny random Mimi codec, and ``build_generator``, which
+turns a command line into a ``Generator``."""
 
 from __future__ import annotations
 
@@ -11,6 +12,37 @@ from csm_torch.codec.mimi import MimiConfig, mimi_init
 from csm_torch.codec.transformer import MimiTransformerConfig
 from csm_torch.data.tokenizers import MimiAudioTokenizer
 from csm_torch.models.config import ModelArgs
+
+
+# Voice presets of the reference's user-facing API: named voices mapped to
+# speaker IDs (the JAX package's ``cli/common.py``)
+VOICE_PRESETS = {
+    "neutral": 0,
+    "warm": 1,
+    "deep": 2,
+    "bright": 3,
+    "soft": 4,
+    "energetic": 5,
+    "calm": 6,
+    "clear": 7,
+    "resonant": 8,
+    "authoritative": 9,
+}
+
+
+def add_voice_args(parser: argparse.ArgumentParser):
+    g = parser.add_mutually_exclusive_group()
+    g.add_argument("--speaker", type=int, default=0, help="Speaker ID (default: 0)")
+    g.add_argument("--voice", type=str, choices=sorted(VOICE_PRESETS), help="Voice preset name")
+    return parser
+
+
+def resolve_speaker(args) -> int:
+    if getattr(args, "voice", None):
+        sid = VOICE_PRESETS[args.voice]
+        print(f"Using voice preset '{args.voice}' (speaker ID: {sid})")
+        return sid
+    return args.speaker
 
 
 def add_parallel_args(parser: argparse.ArgumentParser):
@@ -65,3 +97,32 @@ def tiny_mimi(model_args: ModelArgs, device) -> MimiAudioTokenizer:
     )
     gen = torch.Generator(device=device).manual_seed(1)
     return MimiAudioTokenizer(mimi_init(gen, cfg, device=device), cfg=cfg)
+
+
+def build_generator(args):
+    """A Generator from parsed CLI args on ``args.device``: the tiny random
+    model and codec of ``--tiny-test`` (float32, byte tokenizer), or
+    ``load_csm`` of ``--model-path``/``--mimi-path`` (random weights where
+    a path is missing) at the ``--flavor``'s shape in bf16, quantized as
+    ``--int4``/``--int8``/``--int8-decoder`` say, with ``--kv-int8``."""
+    from csm_torch.data.tokenizers import ByteTokenizer, load_text_tokenizer
+    from csm_torch.generator import Generator, load_csm
+    from csm_torch.models import config
+    from csm_torch.utils.device import resolve_device
+    from csm_torch.utils.params import random_csm_params
+
+    device = resolve_device(args.device)
+    if args.tiny_test:
+        margs = config.tiny_test_args()
+        return Generator(random_csm_params(margs, seed=0, device=device), margs,
+                         mimi=tiny_mimi(margs, device), text_tokenizer=ByteTokenizer(),
+                         compute_dtype=torch.float32, device=device)
+    margs = {"1b": config.csm_1b_args, "8b": config.csm_8b_args,
+             "tiny": config.tiny_file_args}[args.flavor]()
+    qmode = ("int4" if args.int4 else "int8" if args.int8
+             else "int8-decoder" if args.int8_decoder else "none")
+    return load_csm(
+        args.model_path, mimi_path=args.mimi_path, compute_dtype=torch.bfloat16,
+        quantize=qmode, kv_int8=args.kv_int8, args=margs, device=device,
+        text_tokenizer=load_text_tokenizer(allow_byte_fallback=args.allow_byte_tokenizer or None),
+    )

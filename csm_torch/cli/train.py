@@ -5,8 +5,8 @@ optional word-alignment json), a validation split, per-component learning
 rate multipliers, semantic/acoustic loss weights, gradient accumulation and
 in-step microbatches, freeze flags, resume.  ``--device`` picks the card
 (the default) or the CPU; ``--tiny-test`` trains a tiny random model with a
-tiny random Mimi.  Loading real CSM or Mimi weights (``--model-path``,
-``--mimi-path``), parallel training and the options marked in ``--help``
+tiny random Mimi; ``--model-path`` and ``--mimi-path`` load CSM and Mimi
+checkpoint files.  Parallel training and the options marked in ``--help``
 wait for later slices and raise.
 
     python -m csm_torch.cli.train --audio-dir DATA --tiny-test --device cpu
@@ -48,9 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq-len", type=int, default=2048)
     # Model
     p.add_argument("--model-path", type=str, default=None,
-                   help="(not ported yet: ROADMAP.md A.13)")
+                   help="CSM checkpoint: a torchtune ckpt.pt or .safetensors, or a "
+                        "csm-torch-train checkpoint directory (files must be local)")
     p.add_argument("--mimi-path", type=str, default=None,
-                   help="(not ported yet: ROADMAP.md A.13)")
+                   help="Mimi codec checkpoint (safetensors/pt)")
     p.add_argument("--output-dir", type=str, default="./csm_train_output")
     # Optimization
     p.add_argument("--learning-rate", type=float, default=1e-5)
@@ -143,19 +144,22 @@ def prepare_datasets(args, model_args, audio_tokenizer, text_tokenizer):
 
 
 def build_tokenizers(args, model_args, device):
+    from csm_torch.codec.convert import load_mimi_checkpoint
     from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
     from csm_torch.data.tokenizers import ByteTokenizer, MimiAudioTokenizer, load_text_tokenizer
-    from csm_torch.generator import _waits
+    from csm_torch.utils.params import tree_map
 
     if args.tiny_test:
         return ByteTokenizer(), tiny_mimi(model_args, device)
     if args.mimi_path:
-        raise _waits("loading a Mimi checkpoint", "A.13")
-    print("WARNING: no --mimi-path; using random codec weights")
-    gen = torch.Generator(device=device).manual_seed(1)
+        mimi_params = tree_map(lambda t: t.to(device), load_mimi_checkpoint(args.mimi_path))
+    else:
+        print("WARNING: no --mimi-path; using random codec weights")
+        mimi_params = mimi_init(torch.Generator(device=device).manual_seed(1), CSM_MIMI_CONFIG,
+                                device=device)
     return (
         load_text_tokenizer(allow_byte_fallback=args.allow_byte_tokenizer or None),
-        MimiAudioTokenizer(mimi_init(gen, CSM_MIMI_CONFIG, device=device)),
+        MimiAudioTokenizer(mimi_params),
     )
 
 

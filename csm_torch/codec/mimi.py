@@ -7,9 +7,9 @@
     decode:  split RVQ embed-sum → depthwise stride-2 transposed upsample
              (→25 Hz) → 8-layer transformer → SEANet decoder (→24 kHz)
 
-Same parameter tree as the JAX package's ``codec/mimi.py``.  Loading a
-public Mimi checkpoint (``codec/convert.py``, ROADMAP.md A.13) and the
-streaming codec (``codec/streaming.py``, A.14) wait.
+Same parameter tree as the JAX package's ``codec/mimi.py``; a public Mimi
+checkpoint loads through ``codec/convert.py``.  The streaming codec
+(``codec/streaming.py``, ROADMAP.md A.14) waits.
 """
 
 from __future__ import annotations

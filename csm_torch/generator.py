@@ -1,13 +1,14 @@
 """End-to-end text-to-speech: prompt assembly in the (T, 33) frame format,
 autoregressive frame generation, Mimi decode to a 24 kHz waveform.
 
-The counterpart of the JAX package's ``generator.py`` on the random-weight
-path, quantized modes and the 8B flavor included.  Branches that wait for
-later slices raise ``NotImplementedError`` naming their ROADMAP.md item
-instead of being ignored: device meshes (A.11), LoRA adapters (A.10), real
-checkpoints (A.13) and streaming generation (A.9, A.14).  Watermarking
-(A.6) is not on this slice either: a ``watermarker`` callable is applied
-when one is given, and none is by default.
+The counterpart of the JAX package's ``generator.py``: random weights or a
+checkpoint (a torchtune ``ckpt.pt`` or ``.safetensors``, a training
+checkpoint directory, a Mimi file), the quantized modes and the 8B flavor.
+Branches that wait for later slices raise ``NotImplementedError`` naming
+their ROADMAP.md item instead of being ignored: device meshes (A.11), LoRA
+adapters (A.10b) and streaming generation (A.9, A.14).  A ``watermarker``
+callable is applied to each waveform when one is given; ``load_csm`` gives
+none by default, and ``csm-torch-generate`` gives one unless told not to.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from csm_torch.codec.convert import load_mimi_checkpoint
 from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
 from csm_torch.data import frames as fr
 from csm_torch.data.tokenizers import MimiAudioTokenizer, load_text_tokenizer
@@ -32,8 +34,9 @@ from csm_torch.models.generation import (
 )
 from csm_torch.models.llama import fuse_weights
 from csm_torch.utils import quantize as qz
+from csm_torch.utils.checkpoint_compat import load_torch_checkpoint
 from csm_torch.utils.device import resolve_device
-from csm_torch.utils.params import cast_params, random_csm_params
+from csm_torch.utils.params import cast_params, random_csm_params, tree_map
 
 SAMPLE_RATE = 24_000
 FRAME_RATE = 12.5
@@ -208,6 +211,7 @@ class Generator:
         t_gen = time.perf_counter()
 
         outs: List[np.ndarray] = []
+        watermark_s = 0.0
         for b in range(B):
             n = int(nf[b])
             if n == 0:
@@ -222,7 +226,9 @@ class Generator:
                 print(f"WARNING: repaired {bad} non-finite audio samples")
                 audio = np.nan_to_num(audio, nan=0.0, posinf=0.0, neginf=0.0)
             if self.watermarker is not None:
+                t_wm = time.perf_counter()
                 audio, _ = self.watermarker(audio, self.sample_rate)
+                watermark_s += time.perf_counter() - t_wm
             outs.append(np.asarray(audio, np.float32))
 
         wall = time.perf_counter() - t_start
@@ -233,7 +239,8 @@ class Generator:
             "prefill_s": res.prefill_s,
             "capture_s": res.capture_s,
             "generate_s": t_gen - t_tok,
-            "decode_s": time.perf_counter() - t_gen,
+            "decode_s": time.perf_counter() - t_gen,  # Mimi and the watermark
+            "watermark_s": watermark_s,
             "audio_s": total_audio,
             "prompt_bucket": S_pad,
             "steps": res.steps,
@@ -257,9 +264,14 @@ def load_csm(
     text_tokenizer=None,
     seed: int = 0,
 ) -> Generator:
-    """A CSM Generator on random weights made from ``seed`` (CSM-1B unless
-    ``args`` says otherwise, e.g. ``csm_8b_args()``) and a random Mimi codec
-    made from ``seed + 1``.
+    """A CSM Generator (CSM-1B unless ``args`` says otherwise, e.g.
+    ``csm_8b_args()`` or ``tiny_file_args()``).
+
+    ``ckpt_path`` — a reference ``ckpt.pt`` or a ``.safetensors`` file
+    under torchtune names (read with ``args``), or a ``csm-torch-train``
+    checkpoint directory (its own args); None draws random weights from
+    ``seed``.  ``mimi_path`` — a Mimi ``.safetensors`` (HF layout) or
+    ``.pt``/``.bin`` file; None draws a random codec from ``seed + 1``.
 
     ``quantize`` — weight-only quantization of the transformer stacks, after
     the cast to ``compute_dtype`` (so scales are bf16): False/None/"none",
@@ -268,11 +280,9 @@ def load_csm(
     4-bit through the fused-dequant kernel, ops/int4_matmul.py).
     ``kv_int8`` — int8 backbone KV cache, quantized as it is written.
 
-    Models whose bf16 tree exceeds 8 GiB (the 8B flavor) are made quantized
-    a few layers at a time and need quantize="int8" or "int4".  Loading a
-    checkpoint and LoRA adapters raise ``NotImplementedError``."""
-    if ckpt_path is not None or mimi_path is not None:
-        raise _waits("loading real CSM or Mimi checkpoints", "A.13")
+    Models whose bf16 tree exceeds 8 GiB (the 8B flavor) are made or loaded
+    quantized a few layers at a time and need quantize="int8" or "int4".
+    LoRA adapters raise ``NotImplementedError``."""
     args = args or csm_1b_args()
     qmode = {False: "none", True: "int8", None: "none"}.get(quantize, quantize)
     if qmode not in ("none", "int8", "int8-decoder", "int4"):
@@ -280,12 +290,22 @@ def load_csm(
     if 2 * csm_param_count(args) > _STREAMING_LOAD_BYTES:
         return _load_csm_streaming(
             watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device,
-            text_tokenizer, seed,
+            text_tokenizer, seed, ckpt_path=ckpt_path, mimi_path=mimi_path,
         )
     if lora_path is not None:
-        raise _waits("LoRA adapters", "A.10")
+        raise _waits("LoRA adapters", "A.10b")
     device = resolve_device(device)
-    params = cast_params(random_csm_params(args, seed, device=device), compute_dtype)
+    if ckpt_path is None:
+        params = cast_params(random_csm_params(args, seed, device=device), compute_dtype)
+    elif ckpt_path.endswith((".pt", ".safetensors")):
+        params = tree_map(lambda t: t.to(device, compute_dtype),
+                          load_torch_checkpoint(ckpt_path, args))
+    else:
+        # a local import: the training package imports this module
+        from csm_torch.training.checkpoint import load_params
+
+        params, args = load_params(ckpt_path, device)
+        params = cast_params(params, compute_dtype)
     if qmode == "int8":
         params = qz.quantize_csm_params(params)
     elif qmode == "int8-decoder":
@@ -295,25 +315,30 @@ def load_csm(
     elif qmode == "int4":
         params = qz.quantize_csm_params_int4(params)
     return _generator(params, args, watermarker, compute_dtype, kv_int8, device,
-                      text_tokenizer, seed)
+                      text_tokenizer, seed, mimi_path)
 
 
-def _generator(params, args, watermarker, compute_dtype, kv_int8, device, text_tokenizer, seed):
-    mimi_gen = torch.Generator(device=device).manual_seed(seed + 1)
-    mimi = MimiAudioTokenizer(mimi_init(mimi_gen, CSM_MIMI_CONFIG, device=device))
+def _generator(params, args, watermarker, compute_dtype, kv_int8, device, text_tokenizer, seed,
+               mimi_path=None):
+    if mimi_path is None:
+        mimi_gen = torch.Generator(device=device).manual_seed(seed + 1)
+        mimi_params = mimi_init(mimi_gen, CSM_MIMI_CONFIG, device=device)
+    else:
+        mimi_params = tree_map(lambda t: t.to(device), load_mimi_checkpoint(mimi_path))
     return Generator(
-        params, args, mimi=mimi, text_tokenizer=text_tokenizer, watermarker=watermarker,
-        compute_dtype=compute_dtype, device=device,
+        params, args, mimi=MimiAudioTokenizer(mimi_params), text_tokenizer=text_tokenizer,
+        watermarker=watermarker, compute_dtype=compute_dtype, device=device,
         kv_dtype=torch.int8 if kv_int8 else None,
     )
 
 
 def _load_csm_streaming(
-    watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device, text_tokenizer, seed
+    watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device, text_tokenizer, seed,
+    ckpt_path=None, mimi_path=None,
 ) -> Generator:
-    """Random weights made and quantized a few layers at a time on the
-    device, so only the quantized tree ever exists there (the 8B flavor's
-    bf16 tree is over 16 GB)."""
+    """Weights made, or read from a torchtune file into host memory, and
+    quantized a few layers at a time on the device, so only the quantized
+    tree ever exists there (the 8B flavor's bf16 tree is over 16 GB)."""
     if qmode not in ("int8", "int4"):
         raise ValueError(
             f"this model's bf16 tree is over {_STREAMING_LOAD_BYTES >> 30} GiB: pass "
@@ -325,10 +350,21 @@ def _load_csm_streaming(
             "flavor cannot materialize"
         )
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = _fuse_owned(qz.init_csm_params_quantized(gen, args, qmode, device=device))
-    return _generator(params, args, watermarker, compute_dtype, kv_int8, device,
-                      text_tokenizer, seed)
+    if ckpt_path is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = qz.init_csm_params_quantized(gen, args, qmode, device=device)
+    elif ckpt_path.endswith((".pt", ".safetensors")):
+        host = load_torch_checkpoint(ckpt_path, args)
+        params = qz.quantize_csm_params_streaming(host, mode=qmode, device=device)
+        del host
+    else:
+        raise ValueError(
+            "a training checkpoint directory loads whole in float, which this "
+            "flavor cannot hold on the device: export it to .safetensors "
+            "(csm_torch.utils.safetensors_io) or pass a torchtune .pt"
+        )
+    return _generator(_fuse_owned(params), args, watermarker, compute_dtype, kv_int8, device,
+                      text_tokenizer, seed, mimi_path)
 
 
 def _fuse_owned(params: dict) -> dict:

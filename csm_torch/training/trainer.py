@@ -8,9 +8,11 @@ saves first, and sample generation through the port's ``Generator``.
 
 A step's loss and metrics stay on the device and are read one step later,
 while the next step is already queued, so the host never waits for the
-card on every step.  The LoRA trainers, device meshes, checkpoints written
-in the background and loading a real ``ckpt.pt`` or an orbax checkpoint
-wait for later slices (ROADMAP.md A.10b, A.11, A.13).
+card on every step.  ``model_path`` loads a torchtune ``ckpt.pt`` or
+``.safetensors`` file, or a checkpoint directory of this trainer (not the
+JAX package's orbax ones).  The LoRA trainers, device meshes and
+checkpoints written in the background wait for later slices (ROADMAP.md
+A.10b, A.11).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from csm_torch.training import checkpoint as ckpt
 from csm_torch.training.dataset_utils import as_batches, prefetch_batches
 from csm_torch.training.optimizer import init_train_state, make_optimizer
 from csm_torch.training.train_step import make_eval_step, make_train_step
+from csm_torch.utils.checkpoint_compat import load_torch_checkpoint
 from csm_torch.utils.device import resolve_device
 from csm_torch.utils.observability import MetricsLogger, device_memory_stats
 from csm_torch.utils.params import random_csm_params, tree_map
@@ -138,7 +141,13 @@ class CSMTrainer:
             args = args or csm_1b_args()
             self.logger.info("random-initializing model (no model_path)")
             return args, random_csm_params(args, seed=0, device=self.device)
-        raise _waits("loading a torchtune ckpt.pt or an orbax checkpoint", "A.13")
+        if model_path.endswith((".pt", ".safetensors")):
+            self.logger.info(f"loading torchtune checkpoint {model_path}")
+            args = args or csm_1b_args()
+            return args, load_torch_checkpoint(model_path, args)
+        self.logger.info(f"loading training checkpoint {model_path}")
+        params, args = ckpt.load_params(model_path, self.device)
+        return args, params
 
     # ---- optimizer ----
 

@@ -1,12 +1,15 @@
-"""Observability: a JSONL metrics sink and a card-memory snapshot.
+"""Observability: a JSONL metrics sink, a card-memory snapshot and a
+profiler trace.
 
 ``MetricsLogger`` is the JAX package's (one JSON line per step, any
 dashboard can tail it); ``device_memory_stats`` takes the place of its
-``hbm_stats``, from PyTorch's caching allocator.
+``hbm_stats``, from PyTorch's caching allocator; ``profile_trace`` takes
+the place of its ``jax.profiler`` trace, with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -57,3 +60,24 @@ class MetricsLogger:
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """A ``torch.profiler`` trace of the body of the block (host and, where
+    there is a card, its kernels), written to ``log_dir`` as a Chrome
+    trace (open in Perfetto or TensorBoard):
+
+        with profile_trace("csm_profile"):
+            generator.generate(...)
+    """
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -19,9 +19,10 @@ from csm_torch.codec.rvq import RVQParams, SplitRVQParams
 from csm_torch.models.config import ModelArgs
 from csm_torch.models.csm import init_csm_params
 from csm_torch.utils.quantize import host_tensor, is_quantized, is_quantized_int4
+from csm_torch.watermarking.model import GatedConv
 
 # NamedTuple classes of the parameter trees, by name
-_TUPLES = {cls.__name__: cls for cls in (ConvParams, RVQParams, SplitRVQParams)}
+_TUPLES = {cls.__name__: cls for cls in (ConvParams, RVQParams, SplitRVQParams, GatedConv)}
 
 
 def tree_map(fn, tree, is_leaf=None):

@@ -679,3 +679,82 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
                                        compute_dtype=torch.bfloat16, device=cuda)
     assert torch.cuda.current_stream() == stream
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- watermark, loaders
+
+
+def _speech_band(seconds, sr=24_000):
+    """Tones in the speech band over a noise floor."""
+    t = np.arange(int(seconds * sr)) / sr
+    x = sum(0.05 * np.sin(2 * np.pi * f * t) for f in (180, 420, 950, 2300))
+    return (x + 0.005 * np.random.default_rng(0).standard_normal(t.size)).astype(np.float32)
+
+
+def test_watermark_card_matches_cpu(cuda, monkeypatch):
+    """Encode and the message decoder's logits on the card against the
+    CPU, float32 with TF32 off inside the watermarker's calls whatever the
+    process set: encode within 1e-5 of the input's peak (the watermark is
+    ~2e-2 of it), logits within 1e-5 of their largest with equal argmax;
+    one shift a chunk gives the logits of one batch to the same share and
+    argmax (cuDNN may pick another algorithm for another batch size, which
+    rounds otherwise).  The input is speech-band tones over a noise floor: without
+    one, STFT bins near zero carry the phase of rounding noise, which the
+    encoder writes the watermark with, and any two float32 implementations
+    (the JAX package and the port on the CPU too) part there far more."""
+    from csm_torch.watermarking import model as wm
+    from csm_torch.watermarking import watermarker as wmk
+
+    params = wm.init_watermark_params(torch.Generator().manual_seed(0))
+    card = wmk.Watermarker(params, device=cuda)
+    host = wmk.Watermarker(params, device="cpu")
+    audio = _speech_band(1.0)
+    keep = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        enc = card.encode_wav(audio, 24_000, wmk.CSM_1B_GH_WATERMARK)
+        y = torch.from_numpy(np.stack([enc[s: s + 20_000] for s in (0, 10, 20)]))
+        logits_card = card._decode_frames(card.params, y.to(cuda)).cpu()
+        monkeypatch.setattr(wmk, "DECODE_BUDGET_BYTES", 1)
+        logits_chunked = card._decode_frames(card.params, y.to(cuda)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = keep
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == keep
+    want = host.encode_wav(audio, 24_000, wmk.CSM_1B_GH_WATERMARK)
+    assert np.abs(enc - want).max() <= 1e-5 * np.abs(audio).max()
+    logits_host = host._decode_frames(host.params, y)
+    scale = logits_host.abs().max().item()
+    assert (logits_card - logits_host).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(logits_card.argmax(1), logits_host.argmax(1))
+    assert (logits_chunked - logits_card).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(logits_chunked.argmax(1), logits_card.argmax(1))
+
+
+@pytest.mark.parametrize("suffix", [".pt", ".safetensors"])
+def test_checkpoint_loads_on_the_card(cuda, tmp_path, suffix):
+    """A bf16 torchtune file of tiny-file-flavor weights: ``load_csm`` on the
+    card gives the written weights (fused, bf16) bit for bit and generates."""
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.generator import load_csm
+    from csm_torch.models.config import tiny_file_args
+    from csm_torch.models.csm import fuse_csm_params
+    from csm_torch.utils import safetensors
+    from csm_torch.utils.checkpoint_compat import export_to_torch_names
+    from csm_torch.utils.params import cast_params, random_csm_params, tree_map
+
+    args = tiny_file_args()
+    params = cast_params(random_csm_params(args, seed=0), torch.bfloat16)
+    state = {k: v.to(torch.bfloat16) for k, v in export_to_torch_names(params, args).items()}
+    path = str(tmp_path / f"ckpt{suffix}")
+    if suffix == ".pt":
+        torch.save(state, path)
+    else:
+        safetensors.write(path, state)
+    g = load_csm(path, args=args, text_tokenizer=ByteTokenizer(), device=cuda)
+    want = fuse_csm_params(tree_map(lambda t: t.to(cuda), params))
+    for comp in ("backbone", "decoder"):
+        for k, v in want[comp].items():
+            assert torch.equal(g.params[comp][k], v), (comp, k)
+    assert torch.equal(g.params["audio_head"], want["audio_head"])
+    audio = g.generate("from a file", max_audio_length_ms=240, topk=1)
+    assert audio.shape == (3 * 1920,) and np.isfinite(audio).all()

@@ -206,8 +206,6 @@ def test_unported_options_raise(tmp_path):
         make_trainer(str(tmp_path), async_checkpointing=True)
     with pytest.raises(NotImplementedError, match="A.11"):
         make_trainer(str(tmp_path), parallel=object())
-    with pytest.raises(NotImplementedError, match="A.13"):
-        CSMTrainer(model_path=str(tmp_path / "ckpt.pt"), output_dir=str(tmp_path), device="cpu")
 
 
 def test_cli_tiny_test_trains_to_the_end(tmp_path):
