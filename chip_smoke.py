@@ -15,8 +15,11 @@ is wrong:
      tile masked shown to fail its tolerance, its launch-weighted time of
      a frame and a launch floor beside it; the flash forward at the
      prefill's and at the training's, with a dropped key tile shown to fail
-     its tolerance; the int4 matmul at every CSM-1B and 8B projection, with
-     its launch-weighted time of a frame; the matvec at the CSM-1B
+     its tolerance; the int4 matmul at every CSM-1B and 8B projection, and
+     at serving's M = 8 and 64 (and 16, the decoder's S=2 call at 8 slots),
+     with its launch-weighted time of a frame; decode at serving's batches:
+     the backbone at 8 and 64 slots, the decoder at 8 and 64, the 8B
+     backbone at 8, ragged live keys and dead rows; the matvec at the CSM-1B
      backbone's four projections), and timed beside that plain version, one
      PyTorch library call computing the same function, and its bound (for
      decode, from the live keys only);
@@ -44,6 +47,26 @@ is wrong:
      the CNN bypassed, ``encode_wav`` and the decoder's logits card against
      CPU, ``encode_wav`` ms and ``decode_wav`` (52 shifts) seconds, TFLOP/s
      and peak memory at 10 s and 60 s;
+  4c. continuous-batching serving (``csm_torch.serving.BatchedServer``)
+     at CSM-1B width on the JAX serving bench's protocol (48-frame prompts,
+     63 frames a request, 2 x n_slots requests, a 1024-column cache, chunk
+     8, temperature 0.9, topk 50) through the CUDA graphs ``warmup``
+     captures: bf16 at 8 and 64 slots, synchronous and pipelined, the
+     8-slot run also without graphs in turns with the graph run and a window
+     of 256-bucket prompts (flash prefill); the int8 KV cache and int4
+     weights at 8 slots; 8B int4 at 8 slots.  Every request completes with
+     codes in range, every slot frees, the launches equal what the steps
+     and prefills must launch, and a cancel frees its slot and leaves the
+     other streams' codes equal; frames/s, RTF, first-frame times, chunk
+     wall times, warmup seconds, peak memory and a profile's device-busy
+     share are recorded.  At topk=1, 8 served streams against each one
+     generated alone: in float32 (TF32 off) each agrees, or parts on a
+     tie of its logits (margin under 1e-3 of their largest, held); in bf16
+     the leading frames that agree and the margin where they part are
+     recorded.  A tiny float32 server on
+     the card (TF32 off), synchronous and pipelined, equals the CPU server
+     and single-stream generation at topk=1, with rows that write past the
+     cache's end;
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -274,7 +297,7 @@ def fwd_check(name, o, lse, q, k, v, q_pos, kv_pos):
                              f"{used:.2f}x the tolerance")
     check_close(f"{name} L", lse, lse_p, LSE_ATOL, 0.0)
     kv = kv_pos.clone()
-    j0 = 64 * (k.shape[1] // 128)
+    j0 = 64 * (q.shape[1] // 128)  # the middle tile of the S written keys
     kv[..., j0 : j0 + 64] = PAD_POS
     drop = fa.flash_attention_plain(q, k, v, q_pos, kv)[0]
     moved = ((drop.float() - want.float()).abs() / tol).max().item()
@@ -457,6 +480,17 @@ def bwd_rows(gen, dev, flush):
     return rows
 
 
+def serving_live(B, T, seed, lo=48, hi=111):
+    """Live keys of B rows of a serving batch, drawn from lo..hi for all
+    rows but the last two, which are dead (T: a query at PAD_POS sees every
+    column).  The backbone's default: a 48-frame prompt and 0-63 decoded
+    frames."""
+    import random
+
+    rng = random.Random(seed)
+    return tuple([rng.randint(lo, hi) for _ in range(B - 2)] + [T, T])
+
+
 # decode: backbone (Hq=32, Hkv=8, D=64) and decoder (Hq=8, Hkv=2, D=128)
 DECODE_SHAPES = [
     dict(B=1, Hq=32, Hkv=8, D=64, T=89),  # main path: bucket 64 + 25 frames
@@ -471,6 +505,16 @@ DECODE_SHAPES = [
     dict(B=2, Hq=32, Hkv=8, D=64, T=2048, dead_row=True),
     dict(B=1, Hq=8, Hkv=2, D=128, T=32),  # decoder: fresh 32-slot cache
     dict(B=2, Hq=8, Hkv=2, D=128, T=32),
+    # serving at 8 and 64 slots (phase 4c): a 1024-column cache, 48-111 live
+    # keys a row, two dead rows whose query at PAD_POS sees every column
+    dict(B=8, Hq=32, Hkv=8, D=64, T=1024, live=serving_live(8, 1024, seed=8)),
+    dict(B=64, Hq=32, Hkv=8, D=64, T=1024, live=serving_live(64, 1024, seed=64)),
+    # the decoder's S=1 calls at B = capacity (its plan differs from B=1's):
+    # ragged 2-31 live keys of its 32 slots, and two rows that see all 32
+    dict(B=8, Hq=8, Hkv=2, D=128, T=32, live=serving_live(8, 32, seed=9, lo=2, hi=31)),
+    dict(B=64, Hq=8, Hkv=2, D=128, T=32, live=serving_live(64, 32, seed=65, lo=2, hi=31)),
+    # the 8B backbone (D=128) served at 8 slots
+    dict(B=8, Hq=32, Hkv=8, D=128, T=1024, live=serving_live(8, 1024, seed=10)),
 ]
 # the backbone row a frame's decode time is weighted from: T=89 as in
 # generate_short, and a default generate's 1189 slots with 89 live
@@ -526,17 +570,18 @@ def phase_kernels(dev, flush, details):
                          bound_ms=b_ms, bound_by=b_by))
         log(f"decode {shape}: max |kernel - plain| {err:.3e}; masking one live key tile moves "
             f"the plain output {moved:.0f}x the tolerance")
-    # flash forward: prefill buckets 256 and 512, T = S + 25 frames
-    for B, S in ((1, 256), (2, 256), (1, 512), (2, 512)):
-        q, k, v, q_pos, kv_pos = flash_case(B, S, S + 25, 32, 8, 64, gen, dev)
+    # flash forward: prefill buckets 256 and 512, T = S + 25 frames; and a
+    # serving prefill (phase 4c): one row of the 1024-column cache
+    for B, S, T in ((1, 256, 281), (2, 256, 281), (1, 512, 537), (2, 512, 537), (1, 256, 1024)):
+        q, k, v, q_pos, kv_pos = flash_case(B, S, T, 32, 8, 64, gen, dev)
         o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
         torch.cuda.synchronize()
-        err = fwd_check(f"flash fwd B={B} S={S} T={S + 25}", o, lse, q, k, v, q_pos, kv_pos)
+        err = fwd_check(f"flash fwd B={B} S={S} T={T}", o, lse, q, k, v, q_pos, kv_pos)
         pad = q_pos == (1 << 28)
         if pad.any() and not o[pad].abs().amax() > 0:
             raise AssertionError("PAD_POS rows attend every slot: their output is not zero")
         b_ms, b_by = flash_bound(q, k, q_pos, kv_pos)
-        rows.append(dict(kernel="flash_attention_fwd", shape=dict(B=B, S=S, T=S + 25, Hq=32, Hkv=8, D=64),
+        rows.append(dict(kernel="flash_attention_fwd", shape=dict(B=B, S=S, T=T, Hq=32, Hkv=8, D=64),
                          max_abs_err=err,
                          ms=timed_ms(lambda: fa.flash_attention_fwd(q, k, v, q_pos, kv_pos), flush),
                          plain_ms=timed_ms(lambda: fa.flash_attention_plain(q, k, v, q_pos, kv_pos), flush),
@@ -595,18 +640,24 @@ def phase_kernels(dev, flush, details):
 
 # The int4 matmul's shapes on the main path: CSM-1B backbone projections at
 # M = 1 (decode step), 2 (B=2) and 64 (bucket-64 prefill), the decoder's four
-# at M = 1 and 2 (its S=2 call), and the 8B flavor's MLP at M = 1.
+# at M = 1 and 2 (its S=2 call), and the 8B flavor's backbone projections at
+# M = 1 and 64 (its prefill); serving (phase 4c) at M = 8 and 64 slots, the
+# decoder's S=2 call at 8 (M=16), and the 8B backbone at 8 slots.  The 8B
+# flavor's decoder (llama-300M) has the CSM-1B decoder's widths, so the
+# decoder rows hold its shapes too.
 INT4_SHAPES = [
-    ("backbone wqkv", 2048, 3072, (1, 2, 64)),
-    ("backbone wo", 2048, 2048, (1, 2, 64)),
-    ("backbone w13", 2048, 16384, (1, 2, 64)),
-    ("backbone w2", 8192, 2048, (1, 2, 64)),
-    ("decoder wqkv", 1024, 1536, (1, 2)),
-    ("decoder wo", 1024, 1024, (1, 2)),
-    ("decoder w13", 1024, 16384, (1, 2)),
-    ("decoder w2", 8192, 1024, (1, 2)),
-    ("8B w13", 4096, 28672, (1,)),
-    ("8B w2", 14336, 4096, (1,)),
+    ("backbone wqkv", 2048, 3072, (1, 2, 8, 64)),
+    ("backbone wo", 2048, 2048, (1, 2, 8, 64)),
+    ("backbone w13", 2048, 16384, (1, 2, 8, 64)),
+    ("backbone w2", 8192, 2048, (1, 2, 8, 64)),
+    ("decoder wqkv", 1024, 1536, (1, 2, 8, 16, 64)),
+    ("decoder wo", 1024, 1024, (1, 2, 8, 16, 64)),
+    ("decoder w13", 1024, 16384, (1, 2, 8, 16, 64)),
+    ("decoder w2", 8192, 1024, (1, 2, 8, 16, 64)),
+    ("8B wqkv", 4096, 6144, (1, 8, 64)),
+    ("8B wo", 4096, 4096, (1, 8, 64)),
+    ("8B w13", 4096, 28672, (1, 8, 64)),
+    ("8B w2", 14336, 4096, (1, 8, 64)),
 ]
 INT4_MAIN_SHAPE = dict(proj="backbone w13", M=1, K=2048, N=16384)
 
@@ -1425,6 +1476,530 @@ def phase_quantized(details):
     return int4_launches
 
 
+# ---------------------------------------------------------------- phase 4c
+
+
+# The JAX package's serving protocol (scripts/bench_serving.py): prompts of
+# 48 random text frames, 63 frames a request, 2 x n_slots requests, a
+# 1024-column cache, chunk 8, temperature 0.9, topk 50.
+SERVE_T, SERVE_FRAMES, SERVE_MAX_SEQ, SERVE_CHUNK = 48, 63, 1024, 8
+SERVE_LONG_T = 150  # a prompt in the 256 bucket: its prefill takes the flash kernel
+
+
+def serve_requests(args, n, T=SERVE_T, max_frames=SERVE_FRAMES, seed=0):
+    import numpy as np
+
+    from csm_torch.serving import StreamRequest
+
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    reqs = []
+    for i in range(n):
+        tokens = np.zeros((T, K + 1), np.int32)
+        mask = np.zeros((T, K + 1), bool)
+        tokens[:, -1] = rng.integers(1, args.text_vocab_size, T)
+        mask[:, -1] = True
+        reqs.append(StreamRequest(tokens, mask, max_frames=max_frames, request_id=i))
+    return reqs
+
+
+def serving_expected(args, steps, prefills, kv_int8, int4):
+    """Launches a server's run must make: ``steps`` S=1 steps by capacity
+    c, ``prefills`` by bucket.  A step launches the decode kernel once a
+    backbone layer (not over an int8 cache: plain attention over its
+    dequantized copy) and once a decoder layer in each of the decoder's
+    K-2 S=1 calls; a prefill launches the decoder's, and the flash kernel
+    once a backbone layer at buckets of FLASH_MIN_SEQ and more.  int4
+    weights: each call's four projections a layer go through the kernel at
+    M <= MAX_KERNEL_ROWS rows, else the dequant route; a step's backbone has
+    c rows, the decoder's first call 2c, its others c; a prefill's backbone
+    has the bucket's rows, its decoder 2 then 1."""
+    from csm_torch.ops.flash_attention import FLASH_MIN_SEQ
+    from csm_torch.ops.int4_matmul import MAX_KERNEL_ROWS
+
+    K, L_bb, L_dec = args.audio_num_codebooks, args.backbone.num_layers, args.decoder.num_layers
+    want = dict.fromkeys(read_counts(), 0)
+
+    def proj(rows, n):
+        if int4:
+            want["int4_matmul" if rows <= MAX_KERNEL_ROWS else "int4_dequant_route"] += n
+
+    for c, n in steps.items():
+        want["decode_attention"] += n * ((0 if kv_int8 else L_bb) + (K - 2) * L_dec)
+        proj(c, n * 4 * L_bb)
+        proj(2 * c, n * 4 * L_dec)
+        proj(c, n * 4 * L_dec * (K - 2))
+    for b, n in prefills.items():
+        want["decode_attention"] += n * (K - 2) * L_dec
+        want["flash_attention_fwd"] += n * L_bb * (b >= FLASH_MIN_SEQ)
+        proj(b, n * 4 * L_bb)
+        proj(2, n * 4 * L_dec)
+        proj(1, n * 4 * L_dec * (K - 2))
+    return want
+
+
+def served(name, server, reqs, args, needs):
+    """One launch-count window around ``server.run(reqs)`` from a reset:
+    every request completes with 1..max_frames frames and codes in range,
+    every slot frees, and the launches equal what its steps and prefills
+    must launch.  Returns (results by id, stats, counts)."""
+    import torch
+
+    server.reset(0)
+    steps0, pre0 = dict(server.step_calls), dict(server.prefill_calls)
+    reset_counts()  # the window opens
+    results, stats = server.run(reqs)
+    torch.cuda.synchronize()
+    got = read_counts()  # the window closes
+    steps = {c: n - steps0.get(c, 0) for c, n in server.step_calls.items()}
+    pre = {b: n - pre0.get(b, 0) for b, n in server.prefill_calls.items()}
+    int4 = server.weight_dtype == "int4"
+    want = serving_expected(args, steps, pre, server.kv_dtype is not None, int4)
+    if got != want or not all(got[k] for k in needs):
+        raise AssertionError(f"{name}: launches {got}, the steps {steps} and prefills {pre} "
+                             f"need {want}")
+    by_id = {r.request_id: r.frames for r in results}
+    limits = {r.request_id: r.max_frames for r in reqs}
+    if set(by_id) != set(limits):
+        raise AssertionError(f"{name}: {len(by_id)} of {len(limits)} requests came back")
+    for rid, f in by_id.items():
+        if not (1 <= f.shape[0] <= limits[rid] and f.shape[1] == args.audio_num_codebooks
+                and f.min() >= 0 and f.max() < args.audio_vocab_size):
+            raise AssertionError(f"{name}: request {rid} gave frames {f.shape} in "
+                                 f"[{f.min()}, {f.max()}]")
+    if server.active.any() or server._inflight is not None or bool(server.slots.live.any()):
+        raise AssertionError(f"{name}: a slot did not free")
+    return by_id, stats, got
+
+
+def cancel_check(name, server, args, n_frames=24):
+    """n_slots requests admitted at once, run to the end, then again with
+    request 0 cancelled after the first step: its slot frees at once (on the
+    host and on the device), and every other stream's codes equal the run
+    without the cancel.  The batch keeps its capacity and the draws their
+    order, so the sampled codes (the server's own topk) are equal too; each
+    row's arithmetic reads its own row only."""
+    import numpy as np
+
+    runs = []
+    for cancel in (False, True):
+        server.reset(0)
+        reqs = serve_requests(args, server.n_slots, max_frames=n_frames, seed=1)
+        for r in reqs:
+            assert server.submit(r) is not None
+        done = server.step()
+        if cancel:
+            res = server.cancel(0)
+            if res is None or not res.cancelled or server.active[0] or bool(server.slots.live[0]):
+                raise AssertionError(f"{name}: cancel did not free slot 0")
+        done += server.run([])[0]
+        runs.append({r.request_id: r.frames for r in done})
+    full, cut = runs
+    same = [rid for rid in cut if rid != 0 and np.array_equal(cut[rid], full[rid])]
+    if 0 in cut or len(same) != server.n_slots - 1:
+        raise AssertionError(f"{name}: after a cancel {len(same)} of {server.n_slots - 1} "
+                             f"other streams kept their codes")
+    return len(same)
+
+
+def serve_record(name, server, by_id, stats, warmup_s, details, **extra):
+    """Record a run: aggregate frames/s and RTF, each stream's frames over
+    its time from admission to finish, first-frame times from the start of
+    the run (the second wave waits for slots), chunk wall times, warmup
+    seconds, peak memory since the server was made."""
+    import torch
+
+    reqs = stats["requests"]
+    first = sorted(r["first_frame_s"] for r in reqs.values())
+    after_admit = sorted(r["first_frame_s"] - r["admit_s"] for r in reqs.values())
+    per_stream = [len(by_id[rid]) / (r["done_s"] - r["admit_s"]) for rid, r in reqs.items()]
+    rec = {
+        "n_slots": server.n_slots, "weight_dtype": server.weight_dtype,
+        "kv_dtype": "int8" if server.kv_dtype is not None else "bf16",
+        "pipelined": server.pipelined, "graphs": server.graphs,
+        "requests": len(reqs), "frames": stats["total_frames"], "wall_s": stats["wall_s"],
+        "frames_per_s": stats["frames_per_s"], "aggregate_rtf": stats["aggregate_rtf"],
+        "stream_frames_per_s_median": statistics.median(per_stream),
+        "first_frame_s_median": statistics.median(first), "first_frame_s_max": first[-1],
+        "first_frame_after_admit_s_median": statistics.median(after_admit),
+        "first_frame_after_admit_s_max": after_admit[-1],
+        "chunk_wall_s_median": statistics.median(stats["step_wall"]),
+        "chunk_wall_s_max": max(stats["step_wall"]), "chunks": len(stats["step_wall"]),
+        "read_wait_s": stats["read_wait_s"],
+        "warmup_s": warmup_s,
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30, **extra}
+    details.setdefault("serving", {})[name] = rec
+    log(f"serving {name} on {details['card']}: {rec['requests']} requests, {rec['frames']} "
+        f"frames in {rec['wall_s']:.3f} s: {rec['frames_per_s']:.2f} frames/s, RTF "
+        f"{rec['aggregate_rtf']:.3f}, {rec['stream_frames_per_s_median']:.2f} frames/s a "
+        f"stream; first frame {1e3 * rec['first_frame_s_median']:.1f} ms median, "
+        f"{1e3 * rec['first_frame_s_max']:.1f} max (after admission "
+        f"{1e3 * rec['first_frame_after_admit_s_median']:.1f} / "
+        f"{1e3 * rec['first_frame_after_admit_s_max']:.1f}); chunk "
+        f"{1e3 * rec['chunk_wall_s_median']:.1f} "
+        f"ms median, {1e3 * rec['chunk_wall_s_max']:.1f} max; host blocked on results "
+        f"{rec['read_wait_s']:.3f} s; warmup {warmup_s:.2f} s; peak "
+        f"{rec['peak_allocated_gib']:.2f} GiB allocated, {rec['peak_reserved_gib']:.2f} reserved"
+        + "".join(f"; {k} {v}" for k, v in extra.items()))
+    return rec
+
+
+def admission_ms(server, args):
+    """Host milliseconds an admission takes, device work included: n_slots
+    requests submitted to an empty server (one prefill graph replay each,
+    one after the other), then a synchronize."""
+    import torch
+
+    server.reset(0)
+    reqs = serve_requests(args, server.n_slots, seed=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(reqs)
+    server.reset(0)
+    log(f"admission at {server.n_slots} slots: {ms:.3f} ms a request (its prefill included)")
+    return ms
+
+
+def profile_serving(name, server, args, details):
+    """Device-busy share of a few chunks at full load: n_slots requests
+    admitted, one chunk to warm, then three chunks under torch.profiler;
+    busy is the kernels' summed time (one stream) over the wall time; the
+    decode kernel's share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    server.reset(0)
+    for r in serve_requests(args, server.n_slots, seed=2):
+        server.submit(r)
+    server.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            server.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    dec = sum(e.self_device_time_total for e in kernels if "decode_attention" in e.key) / 1e3
+    # the profiler slows the host between chunks, so the kernels' time a
+    # chunk is also set against the unprofiled run's median chunk
+    chunk_ms = 1e3 * details["serving"][name]["chunk_wall_s_median"]
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy if busy else "not measured",
+           "busy_share": busy / wall_ms if busy else "not measured",
+           "busy_share_of_unprofiled_chunk": busy / 3 / chunk_ms if busy else "not measured",
+           "decode_kernel_ms": dec, "decode_share": dec / busy if busy else "not measured",
+           "top_kernels": [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top]}
+    details.setdefault("serving_profile", {})[name] = rec
+    log(f"serving profile {name}, 3 chunks at {server.n_slots} slots: {wall_ms:.1f} ms wall, "
+        f"kernels {rec['device_busy_ms']} ms (busy share {rec['busy_share']}; a chunk's kernels "
+        f"over the unprofiled run's median chunk {rec['busy_share_of_unprofiled_chunk']}), the "
+        f"decode kernel {dec:.3f} ms (share {rec['decode_share']})")
+    for k, n, ms in rec["top_kernels"]:
+        log(f"  {ms:9.3f} ms {n:6d}x {k}")
+
+
+# At a first difference between a served stream and its single-stream run,
+# the single-stream logits of the code the server picked may lie at most this
+# share of their largest magnitude under its argmax (float32: a tie that
+# rounding decides, far under a typical top-2 gap; a wrong row, offset or
+# mask gives such a gap).
+TIE_SHARE = 1e-3
+
+
+def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
+    """CSM-1B at topk=1: 8 streams served together (an 8-slot server,
+    graphs captured on first use) against each generated alone
+    (``generate_audio_tokens_jit``, B=1): each stream's leading frames that
+    agree and, where they part, the tie that parted them: the single-stream
+    logits at the first differing code, recorded by the eager loop with
+    ``csm.sample_topk`` wrapped (its codes equal the graph run's), and the
+    margin of its argmax over the served code, against the median top-2 gap
+    of every recorded call.  ``hold``: each first difference must be a tie
+    (margin <= TIE_SHARE of the logits' largest magnitude)."""
+    import numpy as np
+    import torch
+
+    from csm_torch.models import csm
+    from csm_torch.models.generation import (GraphCache, generate_audio_tokens,
+                                             generate_audio_tokens_jit)
+    from csm_torch.serving import BatchedServer
+
+    server = BatchedServer(params, args, n_slots=8, max_seq_len=SERVE_MAX_SEQ, temperature=0.9,
+                           topk=1, chunk_size=SERVE_CHUNK, compute_dtype=dtype)
+    reqs = serve_requests(args, server.n_slots, max_frames=n_frames, seed=3)
+    results, _ = server.run(reqs)
+    server.close()
+    got = {r.request_id: r.frames for r in results}
+    K = args.audio_num_codebooks
+    cache, agree, ties = GraphCache(), [], []
+
+    def prompt(r):
+        toks = np.zeros((1, 64, K + 1), np.int32)
+        msk = np.zeros((1, 64, K + 1), bool)
+        toks[0, :SERVE_T], msk[0, :SERVE_T] = r.tokens, r.mask
+        return toks, msk, np.array([SERVE_T], np.int32)
+
+    for r in reqs:
+        res = generate_audio_tokens_jit(params, args, *prompt(r), max_frames=n_frames, topk=1,
+                                        compute_dtype=dtype, device="cuda", graphs=cache)
+        solo = res.frames[0, : int(res.num_frames[0])].cpu().numpy()
+        mine = got[r.request_id]
+        n = min(len(solo), len(mine))
+        diff = np.nonzero((solo[:n] != mine[:n]).any(axis=1))[0]
+        if not len(diff):
+            if len(solo) != len(mine):
+                raise AssertionError(f"{name}: request {r.request_id} ends after {len(mine)} "
+                                     f"frames served and {len(solo)} alone")
+            agree.append(n)
+            continue
+        f = int(diff[0])
+        k = int(np.nonzero(solo[f] != mine[f])[0][0])
+        agree.append(f)
+        seen, sample = [], csm.sample_topk
+
+        def recording(logits, *a, **kw):
+            seen.append(logits.detach().float().clone())
+            return sample(logits, *a, **kw)
+
+        csm.sample_topk = recording
+        try:
+            eager = generate_audio_tokens(params, args, *prompt(r), max_frames=f + 1, topk=1,
+                                          compute_dtype=dtype, device="cuda")
+        finally:
+            csm.sample_topk = sample
+        if not np.array_equal(eager.frames[0, : f + 1].cpu().numpy(), solo[: f + 1]):
+            raise AssertionError(f"{name}: the eager loop's codes differ from the graph run's")
+        logits = torch.cat(seen)  # (frames * K, V): frame f's codebook k at f * K + k
+        top2 = logits.topk(2, dim=-1).values
+        L = logits[f * K + k]
+        margin = float(L[int(solo[f, k])] - L[int(mine[f, k])])
+        ties.append({"request": r.request_id, "frame": f, "codebook": k, "margin": margin,
+                     "margin_share_of_max": margin / float(L.abs().max()),
+                     "median_top2_gap": float((top2[:, 0] - top2[:, 1]).median()),
+                     "logit_std": float(L.std())})
+    cache.clear()
+    torch.cuda.synchronize()
+    details.setdefault("serving_single_stream", {})[name] = {
+        "frames": n_frames, "leading_frames_equal": agree, "ties": ties}
+    log(f"{name} topk=1, 8 served streams against each alone: leading frames equal {agree} "
+        f"of {n_frames}")
+    for t in ties:
+        log(f"  request {t['request']} parts at frame {t['frame']} codebook {t['codebook']}: "
+            f"margin {t['margin']:.3e} ({t['margin_share_of_max']:.2e} of the largest logit; "
+            f"median top-2 gap {t['median_top2_gap']:.3e}, logit std {t['logit_std']:.3e})")
+    if hold:
+        wide = [t for t in ties if t["margin_share_of_max"] > TIE_SHARE]
+        if wide:
+            raise AssertionError(f"{name}: served streams part from single-stream where the "
+                                 f"logits are not tied: {wide}")
+
+
+def serving_reference(details):
+    """The tiny float32 server on the card (TF32 off) against the same server
+    on the CPU and against the port's single-stream ``generate_audio_tokens``
+    on the card per request, at topk=1: equal codes.  Six requests over
+    three slots, chunk 8; three of them at bucket + max_frames =
+    max_seq_len, so dead rows write past the cache's end (dropped);
+    synchronous and pipelined, through the graphs; a cancel on the card
+    frees its slot."""
+    import numpy as np
+    import torch
+
+    from csm_torch.models.config import tiny_test_args
+    from csm_torch.models.generation import generate_audio_tokens
+    from csm_torch.serving import BatchedServer, StreamRequest
+    from csm_torch.utils.params import random_csm_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = tiny_test_args()
+    K = args.audio_num_codebooks
+    params = random_csm_params(args, seed=0)
+    specs = [(20, 58), (30, 58), (9, 17), (40, 5), (12, 30), (50, 58)]  # (prompt, max_frames)
+
+    def requests():
+        rng = np.random.default_rng(4)
+        reqs = []
+        for i, (T, mf) in enumerate(specs):
+            tokens = np.zeros((T, K + 1), np.int32)
+            tokens[:, -1] = rng.integers(1, args.text_vocab_size, T)
+            mask = np.zeros((T, K + 1), bool)
+            mask[:, -1] = True
+            reqs.append(StreamRequest(tokens, mask, max_frames=mf, request_id=i))
+        return reqs
+
+    out = {}
+    for name, dev, pipelined in (("cpu", "cpu", False), ("card", "cuda", False),
+                                 ("card_pipelined", "cuda", True)):
+        server = BatchedServer(tree_map(lambda t: t.to(dev), params), args, n_slots=3,
+                               max_seq_len=122, temperature=1.0, topk=1, chunk_size=8,
+                               compute_dtype=torch.float32, pipelined=pipelined, device=dev)
+        if dev == "cuda":
+            server.warmup()
+        results, _ = server.run(requests())
+        out[name] = {r.request_id: r.frames for r in results}
+        if name == "card":
+            if int(server.offsets.max()) <= 122:
+                raise AssertionError("serving reference: no row ran past the cache's end")
+            server.reset(0)
+            for r in requests()[:3]:
+                server.submit(r)
+            server.step()
+            if server.cancel(1) is None or server.active[1] or bool(server.slots.live[1]):
+                raise AssertionError("serving reference: cancel did not free its slot")
+        server.close()
+    card_params = tree_map(lambda t: t.to("cuda"), params)
+    out["single_stream"] = {}
+    for r in requests():
+        T = r.tokens.shape[0]
+        toks = np.zeros((1, 64, K + 1), np.int32)
+        msk = np.zeros(toks.shape, bool)
+        toks[0, :T], msk[0, :T] = r.tokens, r.mask
+        res = generate_audio_tokens(card_params, args, toks, msk, np.array([T], np.int32),
+                                    max_frames=r.max_frames, temperature=1.0, topk=1,
+                                    compute_dtype=torch.float32, device="cuda")
+        out["single_stream"][r.request_id] = res.frames[0, : int(res.num_frames[0])].cpu().numpy()
+    for name in ("card", "card_pipelined", "single_stream"):
+        for rid, f in out["cpu"].items():
+            if not np.array_equal(out[name][rid], f):
+                raise AssertionError(f"serving reference: {name} request {rid} differs from "
+                                     f"the CPU server")
+    frames = sum(len(f) for f in out["cpu"].values())
+    details["serving_reference"] = {"frames": frames, "requests": len(specs)}
+    log(f"serving reference (tiny float32): the card server, synchronous and pipelined, and "
+        f"single-stream generation on the card equal the CPU server over {frames} frames of "
+        f"{len(specs)} requests; a row ran past the cache's end; cancel freed its slot")
+
+
+def phase_serving(details):
+    """Continuous-batching serving at CSM-1B width on random weights from
+    seed 0, through the CUDA graphs that ``warmup`` captures, on the JAX
+    serving protocol: bf16 at 8 and 64 slots, synchronous and pipelined in
+    turns on one server (at 8 slots the same server without graphs runs
+    between them, and a window of 256-bucket prompts drives the flash
+    kernel), each with an admission's time and a profile; the int8 KV cache
+    and int4 weights at 8 slots; 8B int4 at 8 slots (8 requests of 24
+    frames).  Each window's launches are held to what its steps and
+    prefills must launch, and each configuration cancels a stream and keeps
+    the others' codes.  Returns the launches summed over the windows."""
+    import gc
+
+    import torch
+
+    from csm_torch import csm_1b_args
+    from csm_torch.models.config import csm_8b_args
+    from csm_torch.serving import BatchedServer
+    from csm_torch.utils import quantize as qz
+    from csm_torch.utils.params import cast_params, random_csm_params
+
+    serving_reference(details)
+    total = dict.fromkeys(read_counts(), 0)
+
+    def make(params, args, n_slots, topk=50, graphs=True, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(params, args, n_slots=n_slots, max_seq_len=SERVE_MAX_SEQ,
+                               temperature=0.9, topk=topk, chunk_size=SERVE_CHUNK, **kw)
+        if not graphs:  # the same functions without capture (the eager run)
+            server.graphs = False
+        warmup_s = server.warmup()
+        details.setdefault("serving_allocated_after_warmup_gib", {})[
+            f"{n_slots}_{kw}"] = torch.cuda.memory_allocated() / 2**30
+        return server, warmup_s
+
+    def window(name, server, warmup_s, args, reqs, needs=("decode_attention",), **extra):
+        by_id, stats, got = served(name, server, reqs, args, needs)
+        for k, v in got.items():
+            total[k] += v
+        return serve_record(name, server, by_id, stats, warmup_s, details, **extra)
+
+    def config(name, params, args, n_slots, n_req=None, max_frames=SERVE_FRAMES, needs=None,
+               **kw):
+        server, warmup_s = make(params, args, n_slots, **kw)
+        reqs = serve_requests(args, n_req or 2 * n_slots, max_frames=max_frames)
+        window(name, server, warmup_s, args, reqs, needs or ("decode_attention",),
+               cancel_kept=cancel_check(name, server, args))
+        server.close()
+
+    def in_turns(name, server, warmup_s, args, between=None):
+        """One server (its graphs shared by both modes), the protocol's
+        requests synchronous, pipelined, pipelined, synchronous; ``between``
+        runs after the first two; then each mode's cancel check."""
+        reqs = serve_requests(args, 2 * server.n_slots)
+        for i, pipelined in enumerate((False, True, True, False)):
+            if i == 2 and between is not None:
+                between()
+            server.pipelined = pipelined
+            window(name + ("_pipelined" if pipelined else "") + ("_again" if i >= 2 else ""),
+                   server, warmup_s, args, reqs)
+        for pipelined in (False, True):
+            server.pipelined = pipelined
+            details["serving"][name + ("_pipelined" if pipelined else "")]["cancel_kept"] = (
+                cancel_check(name, server, args))
+        server.pipelined = False
+        details["serving"][name]["admission_ms"] = admission_ms(server, args)
+
+    args = csm_1b_args()
+    params = random_csm_params(args, seed=0, device="cuda")
+    # float32 with TF32 off (serving_reference set it): each stream equals
+    # its single-stream run, or parts from it on a tie
+    single_stream_agreement("float32", params, args, torch.float32, 4 * SERVE_CHUNK, details,
+                            hold=True)
+    params = cast_params(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+    # bf16, 8 slots: synchronous and pipelined in turns, the same server
+    # without graphs between them; 256-bucket prompts (flash); a profile
+    graphs, warmup_g = make(params, args, 8)
+
+    def eager_run():
+        eager, warmup_e = make(params, args, 8, graphs=False)
+        window("bf16_8_eager", eager, warmup_e, args, serve_requests(args, 16))
+        eager.close()
+
+    in_turns("bf16_8", graphs, warmup_g, args, between=eager_run)
+    window("bf16_8_long_prompts", graphs, warmup_g, args,
+           serve_requests(args, 8, T=SERVE_LONG_T, max_frames=16),
+           needs=("decode_attention", "flash_attention_fwd"))
+    profile_serving("bf16_8", graphs, args, details)
+    graphs.close()
+    del graphs
+    single_stream_agreement("bf16", params, args, torch.bfloat16, SERVE_FRAMES, details,
+                            hold=False)
+
+    server, warmup_s = make(params, args, 64)
+    in_turns("bf16_64", server, warmup_s, args)
+    profile_serving("bf16_64", server, args, details)
+    server.close()
+    del server
+    config("kv_int8_8", params, args, 8, kv_dtype="int8")
+    config("int4_8", params, args, 8, weight_dtype="int4", needs=("decode_attention", "int4_matmul"))
+    del params
+
+    args8 = csm_8b_args()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params8 = qz.init_csm_params_quantized(torch.Generator("cuda").manual_seed(0), args8, "int4",
+                                           device="cuda")
+    config("int4_8b_8", params8, args8, 8, n_req=8, max_frames=24, weight_dtype="int4",
+           needs=("decode_attention", "int4_matmul"))
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["serving_launches"] = total
+    log(f"serving launches over the windows: {total}")
+    return total
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -1859,18 +2434,29 @@ def main() -> int:
 
         dev = torch.device("cuda")
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        kernels = phase_kernels(dev, flush, details)
+        phase_s = details["phase_s"] = {}
+
+        def timed(name, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            phase_s[name] = time.perf_counter() - t0
+            log(f"phase {name}: {phase_s[name]:.1f} s")
+            return out
+
+        kernels = timed("3", phase_kernels, dev, flush, details)
         del flush
-        launches = phase_main_path(details)
-        phase_files(details)
-        launches["int4_matmul"] = phase_quantized(details)
-        phase_reference(details)
-        launches.update(phase_training(details, dev))
-        phase_train_tiny(details, dev)
-        phase_train_reference(details, dev)
-        launches["matvec"] = phase_matvec_probe(details)
+        launches = timed("4", phase_main_path, details)
+        timed("4b", phase_files, details)
+        serving = timed("4c", phase_serving, details)
+        launches["int4_matmul"] = timed("4q", phase_quantized, details)
+        timed("5", phase_reference, details)
+        launches.update(timed("6", phase_training, details, dev))
+        timed("7", phase_train_tiny, details, dev)
+        timed("8", phase_train_reference, details, dev)
+        launches["matvec"] = timed("9", phase_matvec_probe, details)
         for k in kernels:
             k["launches"] = launches[k["name"]]
+            k["serving_launches"] = serving[k["name"]]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -11,7 +11,7 @@ runs inside its program), and caches are written in place.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,7 +19,7 @@ from csm_torch.models.config import ModelArgs
 from csm_torch.models.llama import fuse_projections, transformer_apply, transformer_init
 from csm_torch.ops.attention import causal_mask_from_positions
 from csm_torch.ops.flash_attention import FLASH_MIN_SEQ
-from csm_torch.ops.kvcache import KVCache, init_kv_cache
+from csm_torch.ops.kvcache import KVCache, Offset, RowOffsets, init_kv_cache, write_rows
 from csm_torch.ops.sampling import sample_topk
 
 # Position of unwritten / padding cache slots: larger than any real query
@@ -95,11 +95,14 @@ class FrameState(NamedTuple):
     """Decode-loop state: backbone KV cache (written in place), the number of
     cache columns written, and the position held by each slot (PAD_POS for
     unwritten / padding slots).  ``offset`` is the first column to write as
-    a Python int, or the S columns as an int64 device tensor (S,): a CUDA
-    graph's frame step, whose column moves from replay to replay."""
+    a Python int; the S columns as an int64 device tensor (S,), a CUDA
+    graph's frame step, whose column moves from replay to replay; or
+    ``RowOffsets``, each row's own column of an S=1 step (serving: every
+    slot's row fills independently, and a column past the cache's end is
+    dropped)."""
 
     cache: KVCache
-    offset: Union[int, torch.Tensor]
+    offset: Offset
     kv_pos: torch.Tensor  # (B, max_seq) int32
 
 
@@ -189,11 +192,16 @@ def generate_frame(
 
     # ---- backbone step ----
     h = masked_embed_sum(params, args, tokens, tokens_mask).to(compute_dtype)
-    kv_pos = state.kv_pos
-    if isinstance(state.offset, torch.Tensor):
-        kv_pos.index_copy_(1, state.offset, input_pos.to(torch.int32))
+    kv_pos, offset = state.kv_pos, state.offset
+    if isinstance(offset, RowOffsets):  # one column a row, past the end dropped
+        write_rows(kv_pos, input_pos.to(torch.int32), offset.cols)
+        next_offset = RowOffsets(offset.cols + S)
+    elif isinstance(offset, torch.Tensor):
+        kv_pos.index_copy_(1, offset, input_pos.to(torch.int32))
+        next_offset = offset + S
     else:
-        kv_pos[:, state.offset : state.offset + S] = input_pos.to(torch.int32)
+        kv_pos[:, offset : offset + S] = input_pos.to(torch.int32)
+        next_offset = offset + S
     if S >= FLASH_MIN_SEQ:  # the JAX package's cutoff, so both take the same paths
         bb_mask, flash_pos = None, (input_pos.to(torch.int32).contiguous(), kv_pos)
     else:
@@ -202,7 +210,7 @@ def generate_frame(
         params["backbone"], bb, h, input_pos, bb_mask, state.cache, state.offset,
         flash_pos=flash_pos,
     )
-    new_state = FrameState(cache, state.offset + S, kv_pos)
+    new_state = FrameState(cache, next_offset, kv_pos)
     last_h = h[:, -1, :] if last_idx is None else h[torch.arange(B, device=device), last_idx.long()]
 
     # ---- codebook 0 from the backbone head ----

@@ -85,6 +85,49 @@ def _prompt_tensors(params, prompt_tokens, prompt_mask, prompt_len, device):
             torch.as_tensor(prompt_len, device=device).to(torch.int32))
 
 
+def capture_graphs(fns, device: torch.device, pool=None) -> list:
+    """Run each function once eagerly, then capture each into a CUDA graph;
+    the graphs share one memory pool (``pool``, or a new one).  Returns
+    [(graph, the launch counts its capture recorded)], for ``replay``.
+
+    The eager pass, on the capture stream, builds the kernels, sets their
+    shared-memory and cluster attributes, fills the launch plans and RoPE
+    tables and gives cuBLAS its workspace on that stream, so nothing is
+    built, set or first allocated under capture: the caller makes that
+    pass harmless to its buffers.  Its launches ran and stay counted; the
+    capture's ran nothing, so the counters are put back after it, and each
+    replay adds the counts it recorded.  A capture that fails raises."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    pool = torch.cuda.graph_pool_handle() if pool is None else pool
+    graphs = []
+    # the outer stream context puts the caller's stream back when a
+    # capture fails: torch.cuda.graph's exit then raises before it does
+    with torch.cuda.stream(torch.cuda.current_stream(device)):
+        for fn in fns:
+            before = _counts()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    fn()
+                delta = [a - b for a, b in zip(_counts(), before)]
+            finally:
+                _add_counts([b - a for a, b in zip(_counts(), before)])
+            graphs.append((graph, delta))
+    return graphs
+
+
+def replay(entry) -> None:
+    """Replay one ``capture_graphs`` graph and add its launch counts."""
+    graph, delta = entry
+    graph.replay()
+    _add_counts(delta)
+
+
 class GraphKey(NamedTuple):
     """What a capture depends on, as the JAX jit's static arguments (the
     weights by identity: a graph holds their addresses)."""
@@ -188,50 +231,18 @@ class FrameGraphs:
         self.i += 1
 
     def capture(self) -> None:
-        """Run each function once eagerly, then capture both into CUDA graphs
-        that share one memory pool.
-
-        The eager pass, on the capture stream, builds the kernels, sets
-        their shared-memory and cluster attributes, fills the launch plans
-        and RoPE tables and gives cuBLAS its workspace on that stream, so
-        nothing is built, set or first allocated under capture.  Its
-        launches ran and stay counted; the capture's ran nothing, so the
-        counters are put back after it, and each replay adds the counts it
-        recorded.  A capture that fails raises.  At ``max_frames`` 1 the
-        step never runs (its frame index would be past ``frames``), so only
-        the prefill is warmed up and captured."""
-        dev = self.key.device
+        """Capture the prefill and the step into CUDA graphs that share one
+        memory pool (``capture_graphs``).  At ``max_frames`` 1 the step
+        never runs (its frame index would be past ``frames``), so only the
+        prefill is warmed up and captured."""
         fns = (self.prefill, self.step) if self.key.max_frames > 1 else (self.prefill,)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for fn in fns:
-                fn()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        # the outer stream context puts the caller's stream back when a
-        # capture fails: torch.cuda.graph's exit then raises before it does
-        with torch.cuda.stream(torch.cuda.current_stream(dev)):
-            for fn in fns:
-                before = _counts()
-                graph = torch.cuda.CUDAGraph()
-                try:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        fn()
-                    delta = [a - b for a, b in zip(_counts(), before)]
-                finally:
-                    _add_counts([b - a for a, b in zip(_counts(), before)])
-                graphs.append((graph, delta))
-        self.graphs = graphs
+        self.graphs = capture_graphs(fns, self.key.device)
 
     def _run(self, which: int, fn) -> None:
         if self.graphs is None:
             fn()
-            return
-        graph, delta = self.graphs[which]
-        graph.replay()
-        _add_counts(delta)
+        else:
+            replay(self.graphs[which])
 
     def run_prefill(self) -> None:
         self._run(0, self.prefill)

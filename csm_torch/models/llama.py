@@ -23,7 +23,7 @@ An int8 (QuantKV) cache is dequantized for the flash and plain routes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +34,7 @@ from csm_torch.ops.attention import gqa_attention
 from csm_torch.ops.decode_attention import decode_gqa_attention
 from csm_torch.ops.flash_attention import flash_gqa_attention
 from csm_torch.ops.int4_matmul import int4_matmul
-from csm_torch.ops.kvcache import KVCache, QuantKV, dequantize_kv, layer_half, update_layer
+from csm_torch.ops.kvcache import KVCache, Offset, QuantKV, dequantize_kv, layer_half, update_layer
 from csm_torch.ops.norms import rms_norm
 from csm_torch.ops.rope import apply_rope, rope_at_positions
 
@@ -112,7 +112,7 @@ def _layer_forward(
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],
     kv_layer: Optional[Tuple[torch.Tensor, torch.Tensor]],
-    cache_offset: Union[int, torch.Tensor, None],
+    cache_offset: Optional[Offset],
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One transformer block; writes this layer's K/V into ``kv_layer`` in
@@ -162,7 +162,7 @@ def transformer_apply(
     positions: torch.Tensor,
     mask: Optional[torch.Tensor],
     cache: Optional[KVCache] = None,
-    cache_offset: Union[int, torch.Tensor, None] = None,
+    cache_offset: Optional[Offset] = None,
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -174,9 +174,10 @@ def transformer_apply(
         mask: (B, S, T) bool attention mask (T = cache length when cached);
             None when ``flash_pos`` is given.
         cache: optional KVCache; new K/V are written IN PLACE at
-            ``cache_offset`` (the first column as a Python int, or the S
-            columns as an int64 device tensor: ``update_layer``) and
-            attention runs over the whole cache.
+            ``cache_offset`` (the first column as a Python int, the S
+            columns as an int64 device tensor, or each row's column of an
+            S=1 step as ``RowOffsets``: ``update_layer``) and attention
+            runs over the whole cache.
         flash_pos: optional (q_pos (B, S) int32, kv_pos (T,) | (B, T) int32):
             attend through the flash kernels, masked from positions: over
             the cache when there is one, else over this call's own K/V (the

@@ -3,9 +3,20 @@
 Layout (num_layers, batch, max_seq, num_kv_heads, head_dim), as in the JAX
 package.  Unlike the functional JAX cache, the port writes new keys and
 values IN PLACE: ``update_layer`` mutates the cache tensors it is given and
-returns them.  The write column is a Python int (a slice) or a device index
-tensor (``index_copy_``), the second for a CUDA graph that replays one
-capture at a column that moves from frame to frame.
+returns them.  The write columns take one of three forms:
+
+  * a Python int: the first of the S columns every row writes (a slice);
+  * an int64 device tensor (S,): the S columns every row writes
+    (``index_copy_``), for a CUDA graph that replays one capture at a column
+    that moves from frame to frame;
+  * ``RowOffsets``: an S=1 write at a column of each row's own (serving,
+    where every slot's row fills independently).  A column at or past the
+    cache's end is dropped, as the JAX package's scatter drops it: the
+    write reads the old entry back in its place, and nothing is clamped
+    onto the last column.
+
+The per-row form has a type of its own because its tensor is (B,), which
+at B=1 has the shape of the all-rows form's (1,).
 
 int8 (``QuantKV``): keys and values are quantized when they are written,
 with one symmetric float32 scale per (batch, position, kv head) row over
@@ -30,6 +41,15 @@ class QuantKV(NamedTuple):
 
 
 KVHalf = Union[torch.Tensor, QuantKV]
+
+
+class RowOffsets(NamedTuple):
+    """The column each row of an S=1 step writes: ``cols[b]`` for row b."""
+
+    cols: torch.Tensor  # (B,) int64
+
+
+Offset = Union[int, torch.Tensor, RowOffsets]
 
 
 class KVCache(NamedTuple):
@@ -91,19 +111,52 @@ def init_kv_cache(
     )
 
 
+def cache_leaves(cache: KVCache) -> list:
+    """The cache's tensors: k and v, or the q and s of each QuantKV half."""
+    return [t for half in cache for t in (half if isinstance(half, QuantKV) else (half,))]
+
+
+def reset_kv_cache(cache: KVCache) -> KVCache:
+    """Zero every leaf of the cache in place (a CUDA graph keeps reading the
+    same tensors); returns the cache."""
+    for leaf in cache_leaves(cache):
+        leaf.zero_()
+    return cache
+
+
+def write_rows(dst: torch.Tensor, src: torch.Tensor, cols: torch.Tensor) -> None:
+    """Row b of ``src`` (B, 1, ...) into column ``cols[b]`` of row b of
+    ``dst`` (B, Smax, ...), in place; a column >= Smax is dropped.  Flat
+    ``index_select`` / ``index_copy_`` over (B·Smax, ...): no host read, so
+    a CUDA graph holds it."""
+    B, T = dst.shape[:2]
+    flat = dst.view(B * T, *dst.shape[2:])
+    keep = (cols < T).view(B, *([1] * (dst.dim() - 2)))
+    idx = torch.arange(B, device=dst.device) * T + cols.clamp(max=T - 1)
+    new = torch.where(keep, src[:, 0].to(dst.dtype), flat.index_select(0, idx))
+    flat.index_copy_(0, idx, new)
+
+
 def update_layer(
     k_cache: KVHalf,
     v_cache: KVHalf,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    offset: Union[int, torch.Tensor],
+    offset: Offset,
 ):
     """Write (B, S, Hkv, D) keys/values into one layer's (B, Smax, Hkv, D)
     cache in place; returns the two cache halves.  ``offset`` is the first
-    column as a Python int, or the S columns as an int64 device tensor
-    (S,).  A QuantKV cache quantizes the new rows here."""
+    column as a Python int, the S columns as an int64 device tensor (S,),
+    or each row's column as ``RowOffsets`` (S must be 1; columns past the
+    end are dropped).  A QuantKV cache quantizes the new rows here."""
     S = k_new.shape[1]
-    if isinstance(offset, torch.Tensor):
+    if isinstance(offset, RowOffsets):
+        if S != 1:
+            raise ValueError(f"per-row cache offsets need S == 1, got S={S}")
+
+        def write(dst, src):
+            write_rows(dst, src, offset.cols)
+    elif isinstance(offset, torch.Tensor):
         def write(dst, src):
             dst.index_copy_(1, offset, src.to(dst.dtype))
     else:

@@ -10,16 +10,38 @@ squared-window normalisation (``torch.istft`` semantics) and trims the pad.
 The DFT is one matmul against a (n_fft, F) real/imaginary basis, as in the
 JAX package.  Frames come from ``Tensor.unfold``; the overlap-add is
 ``F.fold``, which sums each output sample's frames in a fixed order (no
-atomics), so two runs on the card give the same bits.
+atomics), so two runs on the card give the same bits.  Both functions run
+under ``float32_math``: IEEE float32 whatever precision the process asked
+its matmuls for.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def float32_math():
+    """IEEE float32 for the body of the block, on the card and on the CPU:
+    no TF32 or bf16 inside cuDNN's or oneDNN's convolutions and matmuls,
+    whatever the process set (``torch.set_float32_matmul_precision("high")``
+    makes oneDNN round float32 operands to TF32 where the CPU has it).  The
+    previous settings come back after."""
+    b = torch.backends
+    knobs = (b.cudnn.conv, b.cuda.matmul, b.mkldnn.conv, b.mkldnn.matmul)
+    keep = [k.fp32_precision for k in knobs]
+    for k in knobs:
+        k.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for k, v in zip(knobs, keep):
+            k.fp32_precision = v
 
 
 @functools.lru_cache(maxsize=8)
@@ -42,6 +64,7 @@ def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
 
 
+@float32_math()
 def stft(x: torch.Tensor, n_fft: int = 1024, hop: int = 512):
     """(B, T) → (magnitude, phase), each (B, F, n_frames)."""
     T = x.shape[1]
@@ -58,6 +81,7 @@ def stft(x: torch.Tensor, n_fft: int = 1024, hop: int = 512):
     return mag.transpose(1, 2), phase.transpose(1, 2)
 
 
+@float32_math()
 def istft(mag: torch.Tensor, phase: torch.Tensor, num_samples: int,
           n_fft: int = 1024, hop: int = 512) -> torch.Tensor:
     """(B, F, n_frames) magnitude and phase → (B, num_samples) waveform."""

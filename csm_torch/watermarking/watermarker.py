@@ -12,11 +12,13 @@ The counterpart of the JAX package's ``watermarking/watermarker.py``:
   * ``watermark()``/``verify()`` resample to the 44.1 kHz model rate and
     back.
 
-Precision: the CNNs and the STFT run in float32 with TF32 off (IEEE
-float32, ``fp32_precision = "ieee"``) for cuDNN's convolutions and for
-matmuls alike, set inside each call and restored after it, so the watermark
-does not depend on what the process set before (PyTorch's default for
-float32 convolutions on the card is TF32).  The encoder writes the
+Precision: the CNNs and the STFT run in IEEE float32 (``float32_math``:
+``fp32_precision = "ieee"`` for cuDNN's and oneDNN's convolutions and
+matmuls alike), set inside each call and restored after it, so the
+watermark does not depend on what the process set before (PyTorch's default
+for float32 convolutions on the card is TF32, and
+``torch.set_float32_matmul_precision`` reaches the CPU's oneDNN kernels,
+which then round float32 operands to TF32 or bf16 where the CPU has them).  The encoder writes the
 watermark with the input's phase; where the input is near silent in an
 STFT bin (pure tones), that phase is ``atan2`` of rounding noise, and two
 float32 implementations then part there far more than where the input
@@ -34,7 +36,6 @@ wants tens of GB.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -44,7 +45,7 @@ import torch
 from csm_torch.data.audio import load_wav, resample
 from csm_torch.utils.device import resolve_device
 from csm_torch.watermarking import model as wm
-from csm_torch.watermarking.stft import istft, stft
+from csm_torch.watermarking.stft import float32_math, istft, stft
 
 # Public watermark key (reference: src/csm/watermarking/__init__.py:5).
 CSM_1B_GH_WATERMARK = [212, 211, 146, 56, 201]
@@ -76,19 +77,6 @@ def tile_message(symbols: np.ndarray, message_dim: int, n_frames: int) -> np.nda
     one_hot = np.eye(message_dim, dtype=np.float32)[index]  # (L, D)
     reps = int(np.ceil(n_frames / one_hot.shape[0]))
     return np.tile(one_hot.T, (1, reps))[:, :n_frames]
-
-
-@contextlib.contextmanager
-def _float32_math():
-    """Full float32 for the body of the block: no TF32 in cuDNN's
-    convolutions or in matmuls.  The previous settings come back after."""
-    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
-    keep = conv.fp32_precision, matmul.fp32_precision
-    conv.fp32_precision = matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        conv.fp32_precision, matmul.fp32_precision = keep
 
 
 class Watermarker:
@@ -127,7 +115,7 @@ class Watermarker:
     @torch.inference_mode()
     def _encode(self, y: torch.Tensor, msg_tiled: torch.Tensor, message_sdr: float) -> torch.Tensor:
         p, n_fft, hop = self.params, self.n_fft, self.hop
-        with _float32_math():
+        with float32_math():
             norm = torch.sqrt(AVERAGE_ENERGY_VCTK / torch.mean(y * y).clamp_min(1e-12))
             mag, phase = stft((y * norm)[None], n_fft, hop)  # (1, F, N)
             carrier = mag[:, None]  # (1, 1, F, N)
@@ -185,7 +173,7 @@ class Watermarker:
         per-frame symbol logits, ``shifts_per_chunk`` shifts at a time."""
         chunk = self.shifts_per_chunk(y_shifts.shape[1])
         outs = []
-        with _float32_math():
+        with float32_math():
             for y in y_shifts.split(chunk):
                 mag = stft(y, self.n_fft, self.hop)[0][:, None]
                 outs.append(wm.msg_decoder_apply(params["dec_m"], mag, self.message_band_size)[:, 0])

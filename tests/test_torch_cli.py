@@ -11,6 +11,7 @@ wav equals the JAX CLI's within one 16-bit step, and the verify CLIs give
 the same exit code on the same wav.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -23,6 +24,7 @@ from csm_tpu.watermarking import watermarker as jw
 from csm_torch import generator as tgen
 from csm_torch.cli import common as tcommon
 from csm_torch.cli import generate as tgenerate
+from csm_torch.cli import serve as tserve
 from csm_torch.cli import verify as tverify
 from csm_torch.data.audio import load_wav, save_wav
 from test_file_checkpoint_e2e import _write_csm_ckpt, _write_silentcipher_ckpts
@@ -103,6 +105,58 @@ def test_tiny_test_clamps_and_refuses(tmp_path, capsys):
                            "--output", out]) == 1
     assert "fills the tiny context" in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+# ---------------------------------------------------------------- csm-torch-serve
+
+
+def _requests(tmp_path, lines):
+    path = tmp_path / "r.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    return str(path)
+
+
+def test_serve_parser_defaults():
+    a = tserve.build_parser().parse_args(["--requests", "r.jsonl"])
+    assert (a.device, a.n_slots, a.max_seq_len, a.chunk_size, a.ramp_chunk, a.pipelined) == (
+        "cuda", 8, 2048, 8, None, True)
+    assert (a.weight_dtype, a.kv_dtype, a.topk, a.temperature, a.output_dir, a.no_watermark) == (
+        "bf16", "bf16", 50, 0.9, "served", False)
+
+
+@pytest.mark.parametrize("watermark", [False, True])
+def test_serve_writes_one_wav_per_request(tmp_path, capsys, watermark):
+    """--requests: one wav per servable request (budgets clamp to the tiny
+    context), a duplicate id rejected, the stats line printed."""
+    reqs = _requests(tmp_path, [
+        {"id": "a", "text": "hello", "max_audio_length_ms": 400},
+        {"id": "b", "text": "a second one", "speaker": 1, "max_audio_length_ms": 320},
+        {"id": "a", "text": "the same id again"},
+        {"text": "no id: its line number", "max_audio_length_ms": 160},
+    ])
+    out = tmp_path / "out"
+    argv = ["--tiny-test", "--device", "cpu", "--requests", reqs, "--output-dir", str(out),
+            "--n-slots", "2", "--topk", "1"] + ([] if watermark else ["--no-watermark"])
+    assert tserve.main(argv) == 0
+    assert sorted(os.listdir(out)) == ["3.wav", "a.wav", "b.wav"]
+    for name, frames in (("a.wav", 5), ("b.wav", 4), ("3.wav", 2)):
+        audio, sr = load_wav(str(out / name))
+        assert sr == 24_000 and np.isfinite(audio).all() and len(audio)
+        if not watermark:  # the watermark resamples to 44.1 kHz and back
+            assert len(audio) == frames * 1920
+    captured = capsys.readouterr()
+    assert "duplicate id 'a' rejected" in captured.err
+    assert "Served 3 requests" in captured.out and "aggregate RTF" in captured.out
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--http", "8080"], "A.9"), (["--follow"], "A.9"), (["--stream"], "A.9 and A.14"),
+    (["--prefix", "voice=v.json"], "A.9"), (["--window", "512"], "A.9"),
+    (["--adapter", "a=dir"], "A.10b"), (["--lora-path", "dir"], "A.10b")])
+def test_serve_flags_of_later_slices_raise(tmp_path, flag, item):
+    reqs = _requests(tmp_path, [{"id": 0, "text": "hi"}])
+    with pytest.raises(NotImplementedError, match=item):
+        tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs] + flag)
 
 
 # ---------------------------------------------------------------- from files

@@ -681,6 +681,94 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------- serving
+
+
+def _serving_requests(args, specs, seed=11):
+    """StreamRequests (prompt length, request id, max_frames) of random text
+    frames."""
+    from csm_torch.serving import StreamRequest
+
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    out = []
+    for T, rid, max_frames in specs:
+        tokens = np.zeros((T, K + 1), np.int32)
+        mask = np.zeros((T, K + 1), bool)
+        tokens[:, -1] = rng.integers(1, args.text_vocab_size, T)
+        mask[:, -1] = True
+        out.append(StreamRequest(tokens, mask, max_frames=max_frames, request_id=rid))
+    return out
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("mode", ["bf16", "int4", "kv_int8"])
+def test_server_graphs_match_eager(cuda, mode, pipelined):
+    """The server through its CUDA graphs (every graph captured by
+    ``warmup``) against the same server without them, on one seed at
+    topk=50: the same codes for six requests over four slots (admission,
+    compaction to 1, 2 and the full batch, a 150-frame prompt whose prefill
+    takes the flash kernel), and the same launch counts (each replay adds
+    its capture's)."""
+    from csm_torch.models import generation as tgen
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "int4" if mode == "int4" else "bf16", 256)
+    specs = [(20, 0, 9), (33, 1, 5), (150, 2, 12), (40, 3, 7), (12, 4, 3), (25, 5, 10)]
+    got = {}
+    for graphs in (True, False):
+        server = BatchedServer(params, args, n_slots=4, max_seq_len=512, temperature=0.9,
+                               topk=50, chunk_size=4, compute_dtype=torch.bfloat16,
+                               kv_dtype="int8" if mode == "kv_int8" else "bf16",
+                               pipelined=pipelined, device=cuda)
+        if not graphs:  # the same functions without capture
+            server.graphs = False
+        if graphs:
+            server.warmup()
+            assert set(server._decodes) == {1, 2, 4}
+            assert all(d.graph is not None for d in server._decodes.values())
+        server.reset(seed=7)
+        before = tgen._counts()
+        results, _ = server.run(_serving_requests(args, specs))
+        torch.cuda.synchronize()
+        got[graphs] = ({r.request_id: r.frames for r in results},
+                       [a - b for a, b in zip(tgen._counts(), before)])
+        server.close()
+    (codes_g, counts_g), (codes_e, counts_e) = got[True], got[False]
+    assert set(codes_g) == set(range(6))
+    for rid in codes_e:
+        np.testing.assert_array_equal(codes_g[rid], codes_e[rid])
+    assert counts_g == counts_e and counts_g[0] > 0
+    assert counts_g[1] == args.backbone.num_layers  # the one 256-bucket prefill
+    assert (counts_g[2] > 0) == (mode == "int4")
+
+
+def test_server_compaction_round_trip(cuda):
+    """Two live streams in an 8-slot server decode at capacity 2, then 1
+    (rows gathered into the capacity's buffers, scattered back): their
+    codes at topk=50 equal a dedicated 2-slot server's on the same seed,
+    and the six idle rows of the resident cache are never written."""
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "bf16", 64)
+    specs = [(20, 0, 14), (37, 1, 11)]
+    codes = {}
+    for n in (8, 2):
+        server = BatchedServer(params, args, n_slots=n, max_seq_len=128, temperature=0.9,
+                               topk=50, chunk_size=4, compute_dtype=torch.bfloat16, device=cuda)
+        server.reset(seed=3)
+        server.state.cache.k[:, 2:].fill_(7)
+        results, _ = server.run(_serving_requests(args, specs))
+        torch.cuda.synchronize()
+        codes[n] = {r.request_id: r.frames for r in results}
+        if n == 8:
+            assert set(server._decodes) == {1, 2}  # capacity 1 once the shorter one ends
+            assert bool((server.state.cache.k[:, 2:] == 7).all())
+        server.close()
+    for rid in (0, 1):
+        np.testing.assert_array_equal(codes[8][rid], codes[2][rid])
+
+
 # ---------------------------------------------------------------- watermark, loaders
 
 

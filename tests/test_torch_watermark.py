@@ -13,6 +13,15 @@ phase where the magnitude is over 1e-2, to 1e-4 rad); the CNN stacks to
 1e-5 of their largest, with equal argmax.  The message protocol runs with
 ``_decode_frames`` bypassed, as tests/test_watermarking.py runs it, and must
 give the JAX package's results exactly.
+
+Precision is pinned twice.  The port's STFT and watermarker run in IEEE
+float32 whatever the process asked for (``stft.float32_math``), which
+``test_float32_whatever_the_process_set`` checks with the process at "high"
+and "medium" (oneDNN then rounds float32 operands to TF32 or bf16 where the
+CPU has them: bf16 moves the magnitude by ~3e-3 of its peak, TF32 by
+~2e-4).  And every test here runs with both packages' matmul precision at
+"highest", so the CNN stacks, which the tests call outside the
+watermarker, do not read what an earlier test in the process set.
 """
 
 import jax
@@ -37,6 +46,17 @@ KEY = tw.CSM_1B_GH_WATERMARK
 @pytest.fixture(autouse=True)
 def _scipy_resample(monkeypatch):
     monkeypatch.setenv("CSM_TPU_NO_NATIVE", "1")
+
+
+@pytest.fixture(autouse=True)
+def _highest_precision():
+    keep = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(keep)
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +92,28 @@ def test_stft_istft_match_jax():
     y_t = tstft.istft(mag_t, ph_t, 5000)
     _close(y_t, y_j, 1e-5, "istft")
     np.testing.assert_allclose(y_t.numpy(), x, atol=1e-5)  # the round trip
+
+
+@pytest.mark.parametrize("precision", ["high", "medium"])
+def test_float32_whatever_the_process_set(pair, precision):
+    """With the process's float32 matmul precision lowered, the port's STFT,
+    iSTFT and ``encode_wav`` still agree with the JAX package to the
+    tolerances above, and the setting is back after each call."""
+    torch.set_float32_matmul_precision(precision)
+    backends = torch.backends.mkldnn.matmul.fp32_precision, torch.backends.cuda.matmul.fp32_precision
+    x = (np.random.default_rng(0).standard_normal((2, 5000)) * 0.1).astype(np.float32)
+    mag_j, ph_j = jstft.stft(jnp.asarray(x))
+    mag_t, ph_t = tstft.stft(torch.from_numpy(x))
+    _close(mag_t, mag_j, 1e-5, "magnitude")
+    _close(tstft.istft(mag_t, ph_t, 5000), jstft.istft(mag_j, ph_j, 5000), 1e-5, "istft")
+    wj, wt = pair
+    audio = (np.random.default_rng(2).standard_normal(12_000) * 0.1).astype(np.float32)
+    want = wj.encode_wav(audio, 24_000, KEY)
+    _close(wt.encode_wav(audio, 24_000, KEY), want,
+           1e-5 * np.abs(audio).max() / np.abs(want).max(), "encode_wav")
+    assert torch.get_float32_matmul_precision() == precision
+    assert (torch.backends.mkldnn.matmul.fp32_precision,
+            torch.backends.cuda.matmul.fp32_precision) == backends
 
 
 @pytest.mark.parametrize("stack", ["encoder", "message", "carrier_decoder", "msg_decoder"])
