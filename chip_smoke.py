@@ -19,8 +19,12 @@ is wrong:
      at serving's M = 8 and 64 (and 16, the decoder's S=2 call at 8 slots),
      with its launch-weighted time of a frame; decode at serving's batches:
      the backbone at 8 and 64 slots, the decoder at 8 and 64, the 8B
-     backbone at 8, ragged live keys and dead rows; the matvec at the CSM-1B
-     backbone's four projections), and timed beside that plain version, one
+     backbone at 8, ragged live keys and dead rows, and 8 rows over a full
+     sliding-window ring (positions out of column order, negative after a
+     re-anchor, a dead row); the flash forward after a prefix (a 300-frame
+     prefix in its 512 bucket, a 256-frame suffix from position 300 in a
+     2048-column row); the matvec at the CSM-1B backbone's four
+     projections), and timed beside that plain version, one
      PyTorch library call computing the same function, and its bound (for
      decode, from the live keys only);
   4. the main path runs at CSM-1B width on random weights: Generator.generate
@@ -67,6 +71,24 @@ is wrong:
      the card (TF32 off), synchronous and pipelined, equals the CPU server
      and single-stream generation at topk=1, with rows that write past the
      cache's end;
+  4d. shared-prefix and sliding-window serving at CSM-1B width: float32
+     witnesses (TF32 off, topk=1; each stream equal, or parting on a tie
+     under 1e-3 of the largest logit, held): 8 requests naming a 300-frame
+     prefix (bucket 512) with their own text of 20 or 200 frames against
+     each request with the context inlined, generated alone; 2 streams of
+     1040 frames from 1020-frame prompts over a 1280-column window at the
+     least re-anchor headroom, before their first wrap against single-stream
+     generation and across their re-anchor against the same server with a
+     headroom that never re-anchors; a capacity captured while windowed rows
+     are live against a server warmed before traffic (bit-equal).  bf16 at 8
+     slots in launch-count windows: a registration's ms, each admission's
+     ms with the prefix and inlined, first frames; 8 windowed streams of
+     1040 frames (each re-anchors once: its ms) with frames/s and the peak
+     memory before the first wrap, before the first re-anchor and at the
+     end; int4 weights over 320 frames.  Then ``csm-torch-serve --http
+     127.0.0.1:0 --warmup --prefix`` and ``--follow`` as subprocesses: 8
+     concurrent POST /generate (4 naming the preset), /health, /shutdown
+     (exit 0), and JSONL over a pipe (8 wavs, exit 0 at EOF);
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -227,6 +249,61 @@ def flash_case(B, S, T, Hq, Hkv, D, gen, dev):
     return q, k, v, q_pos.contiguous(), kv_pos
 
 
+# Sliding-window serving (phase 4d): 8 rows of a 1280-column cache, a
+# 1024-column anchor (the prompt bucket) and a 256-column ring that every
+# live row has wrapped, so positions are out of column order
+RING = dict(B=8, Hq=32, Hkv=8, D=64, T=1280, anchor=1024)
+
+
+def ring_case(B, Hq, Hkv, D, T, anchor, gen, dev):
+    """bf16 decode inputs over a full ring, the mask from positions as the
+    server makes it: row b's prompt of 1000 - 9·b frames at columns
+    [0, prompt), PAD_POS to the anchor, its latest T - anchor frames wrapped
+    over [anchor, T); rows 0, 2, 4 re-anchored by 1100 (their prompt's
+    positions negative); the last row dead (a query at PAD_POS sees every
+    column)."""
+    import torch
+
+    from csm_torch.models.csm import PAD_POS
+
+    ring = T - anchor
+    kv_pos = torch.full((B, T), PAD_POS, dtype=torch.int64)
+    q_pos = torch.empty(B, dtype=torch.int64)
+    for b in range(B):
+        prompt, frames, delta = 1000 - 9 * b, 300 + 97 * b, 1100 if b in (0, 2, 4) else 0
+        kv_pos[b, :prompt] = torch.arange(prompt) - delta
+        t = torch.arange(frames - ring, frames)  # the frames the ring still holds
+        kv_pos[b, anchor + t % ring] = prompt + t - delta
+        q_pos[b] = prompt + frames - 1 - delta
+    q_pos[-1] = PAD_POS
+    mask = (kv_pos <= q_pos[:, None])[:, None].to(dev)
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, mask
+
+
+# Flash after a prefix (phase 4d): one row of a 2048-column cache, a prefix
+# of 300 frames in its 512 bucket (PAD_POS over 300-511), a 256-frame suffix
+# at positions 300-555 in columns 512-767
+PREFIXED = dict(B=1, S=256, T=2048, Hq=32, Hkv=8, D=64, prefix=300, prefix_bucket=512)
+
+
+def prefixed_flash_case(B, S, T, Hq, Hkv, D, prefix, prefix_bucket, gen, dev):
+    import torch
+
+    from csm_torch.models.csm import PAD_POS
+
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    q_pos = (prefix + torch.arange(S, dtype=torch.int32, device=dev)).expand(B, S).contiguous()
+    kv_pos = torch.full((B, T), PAD_POS, dtype=torch.int32, device=dev)
+    kv_pos[:, :prefix] = torch.arange(prefix, dtype=torch.int32, device=dev)
+    kv_pos[:, prefix_bucket : prefix_bucket + S] = q_pos
+    return q, k, v, q_pos, kv_pos
+
+
 def decode_bound(q, k, mask):
     """Bytes and FLOPs of the live keys only (the work depends on the mask):
     q read and out written once, each live key's K and V rows once, the
@@ -240,15 +317,17 @@ def decode_bound(q, k, mask):
 
 def dropped_key_tile(mask):
     """The mask with one live key tile of every row masked: the middle
-    whole 64-key tile of the row's live keys, or half of them when it has
-    fewer than 128: what a kernel that skipped a live tile would compute."""
+    whole 64 of the row's live keys (in column order: a ring's are not a
+    prefix), or half of them when it has fewer than 128: what a kernel that
+    skipped a live tile would compute."""
     out = mask.clone()
     for row in out[:, 0]:
-        n = int(row.sum())
+        live = row.nonzero().squeeze(1)
+        n = len(live)
         if n:
             width = min(64, max(1, n // 2))
             j0 = width * ((n // width) // 2)
-            row[j0 : j0 + width] = False
+            row[live[j0 : j0 + width]] = False
     return out
 
 
@@ -548,8 +627,8 @@ def phase_kernels(dev, flush, details):
     floor_ms = timed_ms(z.zero_, flush)
     details["launch_floor_ms"] = floor_ms
     log(f"launch floor (a one-element zero_()): {floor_ms:.5f} ms")
-    for shape in DECODE_SHAPES:
-        q, k, v, mask = decode_case(**shape, gen=gen, dev=dev)
+
+    def decode_row(shape, q, k, v, mask):
         got = dec.decode_gqa_attention(q, k, v, mask)
         torch.cuda.synchronize()
         want = dec.decode_attention_plain(q, k, v, mask)
@@ -570,23 +649,32 @@ def phase_kernels(dev, flush, details):
                          bound_ms=b_ms, bound_by=b_by))
         log(f"decode {shape}: max |kernel - plain| {err:.3e}; masking one live key tile moves "
             f"the plain output {moved:.0f}x the tolerance")
-    # flash forward: prefill buckets 256 and 512, T = S + 25 frames; and a
-    # serving prefill (phase 4c): one row of the 1024-column cache
-    for B, S, T in ((1, 256, 281), (2, 256, 281), (1, 512, 537), (2, 512, 537), (1, 256, 1024)):
-        q, k, v, q_pos, kv_pos = flash_case(B, S, T, 32, 8, 64, gen, dev)
+
+    for shape in DECODE_SHAPES:
+        decode_row(shape, *decode_case(**shape, gen=gen, dev=dev))
+    decode_row(dict(RING, ring=True), *ring_case(**RING, gen=gen, dev=dev))
+
+    def flash_row(shape, q, k, v, q_pos, kv_pos):
         o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
         torch.cuda.synchronize()
-        err = fwd_check(f"flash fwd B={B} S={S} T={T}", o, lse, q, k, v, q_pos, kv_pos)
+        err = fwd_check(f"flash fwd {shape}", o, lse, q, k, v, q_pos, kv_pos)
         pad = q_pos == (1 << 28)
         if pad.any() and not o[pad].abs().amax() > 0:
             raise AssertionError("PAD_POS rows attend every slot: their output is not zero")
         b_ms, b_by = flash_bound(q, k, q_pos, kv_pos)
-        rows.append(dict(kernel="flash_attention_fwd", shape=dict(B=B, S=S, T=T, Hq=32, Hkv=8, D=64),
-                         max_abs_err=err,
+        rows.append(dict(kernel="flash_attention_fwd", shape=shape, max_abs_err=err,
                          ms=timed_ms(lambda: fa.flash_attention_fwd(q, k, v, q_pos, kv_pos), flush),
                          plain_ms=timed_ms(lambda: fa.flash_attention_plain(q, k, v, q_pos, kv_pos), flush),
                          library_ms=timed_ms(sdpa_flash(q, k, v, q_pos, kv_pos), flush),
                          bound_ms=b_ms, bound_by=b_by))
+
+    # flash forward: prefill buckets 256 and 512, T = S + 25 frames; a
+    # serving prefill (phase 4c): one row of the 1024-column cache; a suffix
+    # after a prefix (phase 4d)
+    for B, S, T in ((1, 256, 281), (2, 256, 281), (1, 512, 537), (2, 512, 537), (1, 256, 1024)):
+        flash_row(dict(B=B, S=S, T=T, Hq=32, Hkv=8, D=64),
+                  *flash_case(B, S, T, 32, 8, 64, gen, dev))
+    flash_row(PREFIXED, *prefixed_flash_case(**PREFIXED, gen=gen, dev=dev))
     rows += int4_rows(gen, dev, flush, details)
     rows += matvec_rows(gen, dev, flush)
     rows += bwd_rows(gen, dev, flush)
@@ -1722,12 +1810,6 @@ def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
     margin of its argmax over the served code, against the median top-2 gap
     of every recorded call.  ``hold``: each first difference must be a tie
     (margin <= TIE_SHARE of the logits' largest magnitude)."""
-    import numpy as np
-    import torch
-
-    from csm_torch.models import csm
-    from csm_torch.models.generation import (GraphCache, generate_audio_tokens,
-                                             generate_audio_tokens_jit)
     from csm_torch.serving import BatchedServer
 
     server = BatchedServer(params, args, n_slots=8, max_seq_len=SERVE_MAX_SEQ, temperature=0.9,
@@ -1735,26 +1817,43 @@ def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
     reqs = serve_requests(args, server.n_slots, max_frames=n_frames, seed=3)
     results, _ = server.run(reqs)
     server.close()
-    got = {r.request_id: r.frames for r in results}
+    agree_with_single_stream(name, {r.request_id: r.frames for r in results},
+                             {r.request_id: (r.tokens, r.mask) for r in reqs},
+                             params, args, dtype, n_frames, details, hold)
+
+
+def agree_with_single_stream(name, got, prompts, params, args, dtype, n_frames, details, hold):
+    """Served frames ``got`` (by request id) against the first ``n_frames``
+    that each prompt ((T, K+1) tokens and mask) generates alone, as
+    ``single_stream_agreement`` holds them."""
+    import numpy as np
+    import torch
+
+    from csm_torch.models import csm
+    from csm_torch.models.generation import (GraphCache, bucket_length, generate_audio_tokens,
+                                             generate_audio_tokens_jit)
+
     K = args.audio_num_codebooks
     cache, agree, ties = GraphCache(), [], []
 
-    def prompt(r):
-        toks = np.zeros((1, 64, K + 1), np.int32)
-        msk = np.zeros((1, 64, K + 1), bool)
-        toks[0, :SERVE_T], msk[0, :SERVE_T] = r.tokens, r.mask
-        return toks, msk, np.array([SERVE_T], np.int32)
+    def prompt(rid):
+        tokens, mask = prompts[rid]
+        T = tokens.shape[0]
+        toks = np.zeros((1, bucket_length(T), K + 1), np.int32)
+        msk = np.zeros(toks.shape, bool)
+        toks[0, :T], msk[0, :T] = tokens, mask
+        return toks, msk, np.array([T], np.int32)
 
-    for r in reqs:
-        res = generate_audio_tokens_jit(params, args, *prompt(r), max_frames=n_frames, topk=1,
+    for rid in prompts:
+        res = generate_audio_tokens_jit(params, args, *prompt(rid), max_frames=n_frames, topk=1,
                                         compute_dtype=dtype, device="cuda", graphs=cache)
         solo = res.frames[0, : int(res.num_frames[0])].cpu().numpy()
-        mine = got[r.request_id]
+        mine = got[rid][:n_frames]
         n = min(len(solo), len(mine))
         diff = np.nonzero((solo[:n] != mine[:n]).any(axis=1))[0]
         if not len(diff):
             if len(solo) != len(mine):
-                raise AssertionError(f"{name}: request {r.request_id} ends after {len(mine)} "
+                raise AssertionError(f"{name}: request {rid} ends after {len(mine)} "
                                      f"frames served and {len(solo)} alone")
             agree.append(n)
             continue
@@ -1769,7 +1868,7 @@ def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
 
         csm.sample_topk = recording
         try:
-            eager = generate_audio_tokens(params, args, *prompt(r), max_frames=f + 1, topk=1,
+            eager = generate_audio_tokens(params, args, *prompt(rid), max_frames=f + 1, topk=1,
                                           compute_dtype=dtype, device="cuda")
         finally:
             csm.sample_topk = sample
@@ -1779,7 +1878,7 @@ def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
         top2 = logits.topk(2, dim=-1).values
         L = logits[f * K + k]
         margin = float(L[int(solo[f, k])] - L[int(mine[f, k])])
-        ties.append({"request": r.request_id, "frame": f, "codebook": k, "margin": margin,
+        ties.append({"request": rid, "frame": f, "codebook": k, "margin": margin,
                      "margin_share_of_max": margin / float(L.abs().max()),
                      "median_top2_gap": float((top2[:, 0] - top2[:, 1]).median()),
                      "logit_std": float(L.std())})
@@ -1787,8 +1886,8 @@ def single_stream_agreement(name, params, args, dtype, n_frames, details, hold):
     torch.cuda.synchronize()
     details.setdefault("serving_single_stream", {})[name] = {
         "frames": n_frames, "leading_frames_equal": agree, "ties": ties}
-    log(f"{name} topk=1, 8 served streams against each alone: leading frames equal {agree} "
-        f"of {n_frames}")
+    log(f"{name} topk=1, {len(prompts)} served streams against each alone: leading frames equal "
+        f"{agree} of {n_frames}")
     for t in ties:
         log(f"  request {t['request']} parts at frame {t['frame']} codebook {t['codebook']}: "
             f"margin {t['margin']:.3e} ({t['margin_share_of_max']:.2e} of the largest logit; "
@@ -1997,6 +2096,496 @@ def phase_serving(details):
     torch.cuda.empty_cache()
     details["serving_launches"] = total
     log(f"serving launches over the windows: {total}")
+    return total
+
+
+# ---------------------------------------------------------------- phase 4d
+
+
+# Shared prefix: a 300-frame voice preset (280 frames of context audio codes,
+# then 20 of its transcript), bucket 512: its registration runs the flash
+# kernel at S = T = 512.  Requests name it with 20 frames of their own text
+# (bucket 64) or 200 (bucket 256: flash after the prefix).
+PREFIX_T, PREFIX_AUDIO, PREFIX_OWN = 300, 280, (20, 20, 20, 20, 200, 200, 200, 200)
+PREFIX_FRAMES, PREFIX_MAX_SEQ = 24, 1024
+# Sliding window: prompts of 1020 frames (bucket 1024, flash at S = 1024), a
+# 1280-column window (a 256-column ring) and the least re-anchor headroom the
+# server takes, so the RoPE horizon is CSM-1B's 2048 and every stream
+# re-anchors once, from position 2030 to 1288, in 1040 frames.
+WINDOW, WINDOW_T, WINDOW_FRAMES = 1280, 1020, 1040
+WINDOW_HEADROOM = 3 * SERVE_CHUNK + 4
+WINDOW_RING_FRAMES = WINDOW - 1024  # frames a stream makes before its ring wraps
+
+
+def prefix_context(args, seed=0):
+    """The voice preset's (T, K+1) frames: context audio codes, then text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    tokens = np.zeros((PREFIX_T, K + 1), np.int32)
+    mask = np.zeros((PREFIX_T, K + 1), bool)
+    tokens[:PREFIX_AUDIO, :K] = rng.integers(1, args.audio_vocab_size - 3, (PREFIX_AUDIO, K))
+    mask[:PREFIX_AUDIO, :K] = True
+    tokens[PREFIX_AUDIO:, K] = rng.integers(1, args.text_vocab_size, PREFIX_T - PREFIX_AUDIO)
+    mask[PREFIX_AUDIO:, K] = True
+    return tokens, mask
+
+
+def prefix_requests(args, ctx, inline, max_frames=PREFIX_FRAMES, seed=1):
+    """The 8 requests of their own text, naming the prefix, or (``inline``)
+    with the preset's frames before their own."""
+    import numpy as np
+
+    from csm_torch.serving import StreamRequest
+
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    reqs = []
+    for i, T in enumerate(PREFIX_OWN):
+        tokens = np.zeros((T, K + 1), np.int32)
+        mask = np.zeros((T, K + 1), bool)
+        tokens[:, K] = rng.integers(1, args.text_vocab_size, T)
+        mask[:, K] = True
+        if inline:
+            reqs.append(StreamRequest(np.concatenate([ctx[0], tokens]), np.concatenate([ctx[1], mask]),
+                                      max_frames=max_frames, request_id=i))
+        else:
+            reqs.append(StreamRequest(tokens, mask, max_frames=max_frames, request_id=i,
+                                      prefix="voice"))
+    return reqs
+
+
+def server_logits(server, reqs, rid, frame):
+    """The logits (K, V) of request ``rid``'s frame ``frame`` (>= 1) on a
+    synchronous ``server`` without a ramp: ``reqs`` admitted at once from
+    ``reset(0)``, the chunks before the frame's replayed through the graphs,
+    its chunk run without them and with ``csm.sample_topk`` recording."""
+    import numpy as np
+    import torch
+
+    from csm_torch.models import csm
+
+    server.reset(0)
+    for r in reqs:
+        server.submit(r)
+    slot = next(s for s, r in enumerate(server.slot_request) if r is not None and r.request_id == rid)
+    for _ in range((frame - 1) // server.chunk_size):
+        server.step()
+    live_idx = list(np.nonzero(server.active)[0])
+    c = server._decode_capacity(len(live_idx))
+    row = slot if c == server.n_slots else live_idx.index(slot)
+    ds = server._decode_step(c)
+    graph, ds.graph = ds.graph, None
+    seen, sample = [], csm.sample_topk
+
+    def recording(logits, *a, **kw):
+        seen.append(logits.detach().float().clone())
+        return sample(logits, *a, **kw)
+
+    csm.sample_topk = recording
+    try:
+        server.step()
+    finally:
+        csm.sample_topk, ds.graph = sample, graph
+    K = server.args.audio_num_codebooks
+    j = (frame - 1) % server.chunk_size
+    return torch.stack([seen[j * K + k][row] for k in range(K)])
+
+
+def agree_with_server(name, got, want, server, reqs, details):
+    """Streams ``got`` against ``want``, which ``server`` makes from
+    ``reqs``: equal, or each first difference a tie of ``server``'s logits
+    (margin under TIE_SHARE of their largest magnitude); held."""
+    import numpy as np
+
+    ties, agree = [], []
+    for rid, w in want.items():
+        g = got[rid]
+        n = min(len(g), len(w))
+        diff = np.nonzero((g[:n] != w[:n]).any(axis=1))[0]
+        if not len(diff):
+            if len(g) != len(w):
+                raise AssertionError(f"{name}: request {rid}: {len(g)} frames against {len(w)}")
+            agree.append(n)
+            continue
+        f = int(diff[0])
+        k = int(np.nonzero(g[f] != w[f])[0][0])
+        agree.append(f)
+        if f == 0:
+            raise AssertionError(f"{name}: request {rid} differs in frame 0, which both runs "
+                                 f"prefill alike")
+        L = server_logits(server, reqs, rid, f)[k]
+        margin = float(L[int(w[f, k])] - L[int(g[f, k])])
+        ties.append({"request": rid, "frame": f, "codebook": k, "margin": margin,
+                     "margin_share_of_max": margin / float(L.abs().max())})
+    details.setdefault("serving_server_agreement", {})[name] = {"leading_frames_equal": agree,
+                                                                "ties": ties}
+    log(f"{name}: leading frames equal {agree}; ties {ties}")
+    wide = [t for t in ties if t["margin_share_of_max"] > TIE_SHARE]
+    if wide:
+        raise AssertionError(f"{name}: streams part where the logits are not tied: {wide}")
+
+
+def window_requests(args, n, max_frames=WINDOW_FRAMES, seed=6):
+    return serve_requests(args, n, T=WINDOW_T, max_frames=max_frames, seed=seed)
+
+
+def reanchor_log(server):
+    """Wrap ``server._reanchor`` to record each row's re-anchor: (row,
+    delta, ms), the device work included."""
+    import torch
+
+    rows, real = [], server._reanchor
+
+    def timed(row, delta):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(row, delta)
+        torch.cuda.synchronize()
+        rows.append((row, delta, 1e3 * (time.perf_counter() - t0)))
+
+    server._reanchor = timed
+    return rows
+
+
+def prefix_float32(params, args, details):
+    """The prefix witness in float32 (TF32 off), topk=1: 8 requests naming
+    a 300-frame prefix, served together, each against its request with the
+    context inlined, generated alone."""
+    from csm_torch.serving import BatchedServer
+
+    ctx = prefix_context(args)
+    server = BatchedServer(params, args, n_slots=8, max_seq_len=PREFIX_MAX_SEQ, temperature=0.9,
+                           topk=1, chunk_size=SERVE_CHUNK, compute_dtype=params["codebook0_head"].dtype)
+    server.register_prefix("voice", *ctx)
+    results, _ = server.run(prefix_requests(args, ctx, inline=False))
+    if set(server._prefix_prefills) != {(512, 64), (512, 256)}:
+        raise AssertionError(f"prefix admissions {set(server._prefix_prefills)}")
+    server.close()
+    agree_with_single_stream("prefix_float32", {r.request_id: r.frames for r in results},
+                             {r.request_id: (r.tokens, r.mask)
+                              for r in prefix_requests(args, ctx, inline=True)},
+                             params, args, params["codebook0_head"].dtype, PREFIX_FRAMES, details,
+                             hold=True)
+
+
+def prefix_bf16(params, args, details, total):
+    """bf16 at 8 slots: a registration's ms (its first, with the capture, and
+    again); each admission's ms with the prefix and with the context inlined
+    (host time around a submit, device work included); then the 8 prefix
+    requests served in one launch-count window, with their first frames."""
+    import torch
+
+    from csm_torch.serving import BatchedServer
+
+    ctx = prefix_context(args)
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(params, args, n_slots=8, max_seq_len=PREFIX_MAX_SEQ, temperature=0.9,
+                           topk=50, chunk_size=SERVE_CHUNK)
+    reg_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.register_prefix("voice", *ctx)
+        torch.cuda.synchronize()
+        reg_ms.append(1e3 * (time.perf_counter() - t0))
+    warmup_s = server.warmup()
+    own, inline = prefix_requests(args, ctx, inline=False), prefix_requests(args, ctx, inline=True)
+    admit = {"prefix": [], "inline": []}
+    for rep in range(2):  # the first pass captures the (512, 256) admission
+        for kind, reqs in (("prefix", own), ("inline", inline)):
+            for r in reqs:
+                server.reset(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                server.submit(r)
+                torch.cuda.synchronize()
+                if rep:
+                    admit[kind].append(1e3 * (time.perf_counter() - t0))
+    by_id, stats, got = served("prefix_bf16_8", server, own, args, ("decode_attention",
+                                                                    "flash_attention_fwd"))
+    for k, v in got.items():
+        total[k] += v
+    rec = serve_record("prefix_bf16_8", server, by_id, stats, warmup_s, details,
+                       register_ms=reg_ms, admission_ms_prefix=admit["prefix"],
+                       admission_ms_inline=admit["inline"])
+    rec["first_frame_after_admit_s"] = {rid: r["first_frame_s"] - r["admit_s"]
+                                        for rid, r in stats["requests"].items()}
+    server.close()
+
+
+def window_float32(params, args, details):
+    """The window witnesses in float32 (TF32 off), topk=1, 2 slots: the
+    frames before the first wrap against single-stream generation of the
+    same prompt; the stream across its re-anchor against the same windowed
+    server with a headroom that never re-anchors."""
+    from csm_torch.serving import BatchedServer
+
+    dtype = params["codebook0_head"].dtype
+    reqs = window_requests(args, 2)
+    runs = {}
+    for name, headroom in (("reanchored", WINDOW_HEADROOM), ("never", 1024)):
+        server = BatchedServer(params, args, n_slots=2, max_seq_len=2048, temperature=0.9, topk=1,
+                               chunk_size=SERVE_CHUNK, compute_dtype=dtype, window=WINDOW,
+                               reanchor_headroom=headroom)
+        rows = reanchor_log(server)
+        results, _ = server.run(reqs)
+        runs[name] = ({r.request_id: r.frames for r in results}, server, rows)
+    (got, fast, rows), (want, slow, never) = runs["reanchored"], runs["never"]
+    fast.close()
+    if sorted({r for r, _, _ in rows}) != [0, 1] or never:
+        raise AssertionError(f"window float32: re-anchors {rows} (each slot once), {never} (none)")
+    agree_with_server("window_float32_across_reanchor", got, want, slow, reqs, details)
+    slow.close()
+    agree_with_single_stream("window_float32_before_wrap", got,
+                             {r.request_id: (r.tokens, r.mask) for r in reqs},
+                             params, args, dtype, WINDOW_RING_FRAMES, details, hold=True)
+    details["window_float32_reanchors"] = rows
+
+
+def window_bf16(params, args, details, total):
+    """bf16 at 8 slots, 8 streams of 1040 frames over the 1280-column window
+    in one launch-count window: frames/s, each re-anchor's ms, and the peak
+    memory before the first wrap, before the first re-anchor and at the
+    end; then int4 weights over 320 frames (past the first wrap)."""
+    import torch
+
+    from csm_torch.serving import BatchedServer
+
+    for name, kw, frames in (("window_bf16_8", {}, WINDOW_FRAMES),
+                             ("window_int4_8", dict(weight_dtype="int4"), 320)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(params, args, n_slots=8, max_seq_len=2048, temperature=0.9, topk=50,
+                               chunk_size=SERVE_CHUNK, window=WINDOW,
+                               reanchor_headroom=WINDOW_HEADROOM, **kw)
+        warmup_s = server.warmup()
+        rows = reanchor_log(server)
+        peaks, real_step = [], server.step
+
+        def step():
+            done = real_step()
+            peaks.append((int(server._pos_host.max()), torch.cuda.max_memory_allocated()))
+            return done
+
+        server.step = step
+        needs = ("decode_attention", "flash_attention_fwd") + (("int4_matmul",) if kw else ())
+        by_id, stats, got = served(name, server, window_requests(args, 8, frames), args, needs)
+        for k, v in got.items():
+            total[k] += v
+        # the steps before the rings start to wrap, and before the first re-anchor
+        wrap = next((i for i, (p, _) in enumerate(peaks) if p > WINDOW_T + WINDOW_RING_FRAMES),
+                    len(peaks))
+        re = next((i for i, (p, _) in enumerate(peaks) if p >= server._reanchor_at), len(peaks))
+        memory = {"before_wrap": max(m for _, m in peaks[: max(wrap, 1)]),
+                  "before_reanchor": max(m for _, m in peaks[: max(re, 1)]),
+                  "end": peaks[-1][1]}
+        serve_record(name, server, by_id, stats, warmup_s, details,
+                     reanchors=len(rows), reanchor_ms=[ms for _, _, ms in rows],
+                     peak_allocated_bytes=memory)
+        if name == "window_bf16_8" and sorted({r for r, _, _ in rows}) != list(range(8)):
+            raise AssertionError(f"{name}: re-anchored rows {rows}")
+        server.close()
+
+
+def lazy_capture(params, args, details):
+    """A capacity captured for the first time while windowed rows are live
+    (float32, TF32 off, topk=1): one stream decodes 24 frames, three more
+    join and the full batch of 4 is captured then; every stream's codes
+    equal a run whose capacities ``warmup`` captured before any traffic."""
+    import numpy as np
+
+    from csm_torch.serving import BatchedServer
+
+    runs = {}
+    for warm in (False, True):
+        server = BatchedServer(params, args, n_slots=4, max_seq_len=256, temperature=0.9, topk=1,
+                               chunk_size=SERVE_CHUNK, compute_dtype=params["codebook0_head"].dtype,
+                               window=256)
+        if warm:
+            server.warmup()
+        server.reset(0)
+        first, *later = serve_requests(args, 4, max_frames=64, seed=7)
+        server.submit(first)
+        done = []
+        for _ in range(3):
+            done += server.step()
+        if not warm and 4 in server._decodes:
+            raise AssertionError("lazy capture: the full batch was captured before traffic")
+        for r in later:
+            server.submit(r)
+        done += server.run([])[0]
+        if 4 not in server._decodes or server._decodes[4].graph is None:
+            raise AssertionError("lazy capture: the full batch ran without its graph")
+        runs[warm] = {r.request_id: r.frames for r in done}
+        server.close()
+    same = [rid for rid in runs[True] if np.array_equal(runs[True][rid], runs[False][rid])]
+    details["lazy_capture_streams_equal"] = len(same)
+    log(f"lazy capture: {len(same)} of 4 windowed streams equal a warmed server's")
+    if len(same) != 4:
+        raise AssertionError("lazy capture: a capture mid-traffic changed live streams' codes")
+
+
+def write_preset(d):
+    """A voice preset for the daemons: 2 s of speech-band audio and its
+    transcript, in a directory of the caller's."""
+    from csm_torch.data.audio import save_wav
+
+    wav = Path(d) / "preset.wav"
+    save_wav(str(wav), speech_band(2.0), 24_000)
+    preset = Path(d) / "preset.json"
+    preset.write_text(json.dumps({"context": [{"audio": str(wav), "text": "A preset voice.",
+                                               "speaker": 1}]}))
+    return str(preset)
+
+
+def serve_cmd(*argv):
+    return [sys.executable, "-m", "csm_torch.cli.serve", "--n-slots", "8", "--allow-byte-tokenizer",
+            *argv]
+
+
+def daemons(details):
+    """``csm-torch-serve`` at CSM-1B width (random weights) as two
+    subprocesses started together: ``--http 127.0.0.1:0 --warmup`` with a
+    preset, answering 8 concurrent POST /generate (4 naming the preset), each
+    a watermarked wav of its 20 frames, then GET /health and POST /shutdown
+    (exit 0); and ``--follow`` fed JSONL over a pipe in two writes, each wav
+    written as its request ends, exit 0 at EOF."""
+    import io
+    import re
+    import tempfile
+    import threading
+    import urllib.request
+    import wave
+
+    frames = 20
+    with tempfile.TemporaryDirectory() as d:
+        preset = write_preset(d)
+        t0 = time.perf_counter()
+        http = subprocess.Popen(serve_cmd("--http", "127.0.0.1:0", "--warmup", "--max-seq-len", "512",
+                                          "--prefix", f"voice={preset}"),
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        follow = subprocess.Popen(serve_cmd("--requests", "-", "--follow", "--output-dir", d,
+                                            "--max-seq-len", "256", "--no-watermark"),
+                                  cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        try:
+            out, port = [], {}
+
+            def read():
+                for line in http.stdout:
+                    out.append(line)
+                    m = re.search(r"Serving on http://127\.0\.0\.1:(\d+)", line)
+                    if m:
+                        port["n"] = int(m.group(1))
+                        return
+
+            reader = threading.Thread(target=read, daemon=True)
+            reader.start()
+            lines = [json.dumps({"id": f"f{i}", "text": f"Line {i} from the pipe.",
+                                 "max_audio_length_ms": 80 * (10 + i)}) for i in range(8)]
+            follow.stdin.write("\n".join(lines[:4]) + "\n")
+            follow.stdin.flush()
+            reader.join(timeout=300)
+            if "n" not in port:
+                raise AssertionError("daemon: --http never served:\n" + "".join(out))
+            up_s = time.perf_counter() - t0
+            base = f"http://127.0.0.1:{port['n']}"
+            answers = {}
+
+            def post(i):
+                body = {"text": f"Request {i} to the card.", "max_audio_length_ms": 80 * frames}
+                if i % 2:
+                    body["prefix"] = "voice"
+                req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode())
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[i] = (r.status, r.headers["Content-Type"], int(r.headers["X-Frames"]),
+                                  r.read())
+
+            t1 = time.perf_counter()
+            posts = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+            for t in posts:
+                t.start()
+            for t in posts:
+                t.join(timeout=300)
+            answer_s = time.perf_counter() - t1
+            for i in range(8):
+                status, ctype, n, wav = answers.get(i, (None,) * 4)
+                if (status, ctype, n) != (200, "audio/wav", frames):
+                    raise AssertionError(f"daemon: POST {i} answered {status} {ctype} {n} frames")
+                with wave.open(io.BytesIO(wav)) as w:
+                    if w.getframerate() != 24_000 or round(w.getnframes() / 1920) != frames:
+                        raise AssertionError(f"daemon: POST {i} gave {w.getnframes()} samples")
+            health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+            if health["served"] != 8 or health["prefixes"] != ["voice"]:
+                raise AssertionError(f"daemon: health {health}")
+            urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
+            http_out = "".join(out) + http.communicate(timeout=300)[0]
+            follow.stdin.write("\n".join(lines[4:]) + "\n")
+            follow_out = follow.communicate(timeout=300)[0]
+        finally:
+            for p in (http, follow):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if http.returncode != 0 or "HTTP served 8 requests" not in http_out:
+            raise AssertionError(f"daemon: --http exited {http.returncode}:\n{http_out}")
+        if follow.returncode != 0 or "Served 8 requests" not in follow_out:
+            raise AssertionError(f"daemon: --follow exited {follow.returncode}:\n{follow_out}")
+        from csm_torch.data.audio import load_wav
+
+        for i in range(8):
+            audio, sr = load_wav(str(Path(d) / f"f{i}.wav"))
+            if sr != 24_000 or len(audio) != (10 + i) * 1920:
+                raise AssertionError(f"daemon: --follow wrote {len(audio)} samples for f{i}")
+    details["daemons"] = {"http_up_s": up_s, "http_answer_8_s": answer_s, "health": health}
+    log(f"daemons: --http up (weights, warmup, captures) in {up_s:.1f} s, 8 concurrent POSTs "
+        f"answered in {answer_s:.2f} s, /health {health}; --follow wrote 8 wavs, both exited 0")
+
+
+def phase_prefix_window(details):
+    """Shared-prefix and sliding-window serving at CSM-1B width on random
+    weights from seed 0, and the two daemons.  Float32 witnesses (TF32 off,
+    topk=1) for the prefix, the window before its first wrap, the re-anchor
+    and a capture mid-traffic; bf16 runs at 8 slots, each in a launch-count
+    window held to what its steps, admissions and registrations launch.
+    Returns the launches summed over those windows."""
+    import gc
+
+    import torch
+
+    from csm_torch import csm_1b_args
+    from csm_torch.utils.params import cast_params, random_csm_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = dict.fromkeys(read_counts(), 0)
+    args = csm_1b_args()
+    params = random_csm_params(args, seed=0, device="cuda")
+    t = {}
+    t0 = time.perf_counter()
+    prefix_float32(params, args, details)
+    t["prefix_float32"] = time.perf_counter() - t0
+    window_float32(params, args, details)
+    t["window_float32"] = time.perf_counter() - t0 - sum(t.values())
+    lazy_capture(params, args, details)
+    t["lazy_capture"] = time.perf_counter() - t0 - sum(t.values())
+    params = cast_params(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix_bf16(params, args, details, total)
+    t["prefix_bf16"] = time.perf_counter() - t0 - sum(t.values())
+    window_bf16(params, args, details, total)
+    t["window_bf16"] = time.perf_counter() - t0 - sum(t.values())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    daemons(details)
+    t["daemons"] = time.perf_counter() - t0 - sum(t.values())
+    details["prefix_window_s"] = t
+    details["prefix_window_launches"] = total
+    log(f"prefix and window launches over the windows: {total}; seconds {t}")
     return total
 
 
@@ -2448,6 +3037,7 @@ def main() -> int:
         launches = timed("4", phase_main_path, details)
         timed("4b", phase_files, details)
         serving = timed("4c", phase_serving, details)
+        windowed = timed("4d", phase_prefix_window, details)
         launches["int4_matmul"] = timed("4q", phase_quantized, details)
         timed("5", phase_reference, details)
         launches.update(timed("6", phase_training, details, dev))
@@ -2457,6 +3047,7 @@ def main() -> int:
         for k in kernels:
             k["launches"] = launches[k["name"]]
             k["serving_launches"] = serving[k["name"]]
+            k["prefix_window_launches"] = windowed[k["name"]]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

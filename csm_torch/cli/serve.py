@@ -1,20 +1,38 @@
-"""``csm-torch-serve`` — batch serving over the continuous-batching server.
+"""``csm-torch-serve`` — serving over the continuous-batching server.
 
-The port of the JAX package's ``csm-serve`` in its ``--requests FILE``
-mode: a JSONL file of requests, served through one ``BatchedServer``
-(csm_torch/serving.py), one wav per request (Mimi decode, then the
-watermark unless ``--no-watermark``), and a stats line.  ``--device``
-picks the card (the default) or the CPU; ``--tiny-test`` runs a tiny
-random model and codec.  ``--http``, ``--follow``, ``--stream``,
-``--prefix``, ``--window``, ``--adapter`` and ``--lora-path`` wait for
-later slices and raise.
+The port of the JAX package's ``csm-serve``: requests served through one
+``BatchedServer`` (csm_torch/serving.py), each finished request decoded by
+Mimi and watermarked unless ``--no-watermark``.  Three ways in:
+
+  * ``--requests FILE``: a JSONL file, one wav per request and a stats line;
+  * ``--requests - --follow``: a stdin daemon that admits lines as they
+    arrive, writes each wav when its request finishes and exits at EOF once
+    everything drains (a line ``{"cancel": ID}`` aborts a request,
+    ``{"register_prefix": {"name", "path"}}`` and ``{"unregister_prefix":
+    NAME}`` change the presets);
+  * ``--http [HOST:]PORT``: ``POST /generate`` (a request line's JSON)
+    answers ``audio/wav``, ``GET /health`` and ``GET /metrics`` give the
+    stats, ``POST /prefixes`` changes the presets, ``POST /shutdown``
+    drains and exits; past ``--http-queue`` waiting requests a POST gets
+    503 at once.  Only the main thread touches the card: handler threads
+    queue their request and wait.
+
+``--prefix NAME=FILE.json`` registers a voice preset at startup (its
+context audio Mimi-encoded and run through the backbone once); a request
+naming it carries only its own text.  ``--window N`` serves sessions of
+any length over an N-column sliding-window cache.  ``--device`` picks the
+card (the default) or the CPU; ``--tiny-test`` runs a tiny random model and
+codec.  ``--stream``, ``--adapter`` and ``--lora-path`` wait for later
+slices and raise.
 
 Request lines: {"id": str|int, "text": "...", "speaker": 0,
                 "max_audio_length_ms": 10000,
-                "context": [{"audio": "path.wav", "text": "...", "speaker": 1}, ...]}
+                "context": [{"audio": "path.wav", "text": "...", "speaker": 1}, ...],
+                "prefix": "voice-a"}
 
     python -m csm_torch.cli.serve --requests reqs.jsonl --output-dir out/ \\
         --model-path ckpt.pt --mimi-path model.safetensors --n-slots 16
+    python -m csm_torch.cli.serve --http 127.0.0.1:8000 --warmup --prefix warm=voice.json
 """
 
 from __future__ import annotations
@@ -42,13 +60,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora-path", type=str, default=None,
                    help="LoRA adapter directory (not ported yet: ROADMAP.md A.10b)")
     p.add_argument("--prefix", action="append", default=None, metavar="NAME=FILE.json",
-                   help="shared context prefix (not ported yet: ROADMAP.md A.9)")
-    p.add_argument("--requests", type=str, default=None, help="JSONL file of requests")
+                   help="Register a shared context prefix (repeatable): FILE.json holds "
+                        "{\"context\": [{audio, text, speaker}, ...]} (or a bare list), run "
+                        "through the backbone once at startup; requests name it in their "
+                        "'prefix' field and carry only their own text")
+    p.add_argument("--requests", type=str, default=None,
+                   help="JSONL file of requests ('-' = stdin, with --follow); required "
+                        "unless --http")
     p.add_argument("--output-dir", type=str, default="served")
     p.add_argument("--n-slots", type=int, default=8, help="Concurrent decode slots")
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--window", type=int, default=None,
-                   help="sliding-window KV (not ported yet: ROADMAP.md A.9)")
+                   help="Sliding-window KV of this many columns for sessions of any length: "
+                        "each stream keeps its prompt and writes its frames round a ring over "
+                        "the rest; max_audio_length_ms is not capped by --max-seq-len")
     p.add_argument("--chunk-size", type=int, default=8, help="Decode frames per host round trip")
     p.add_argument("--ramp-chunk", type=int, default=None,
                    help="Short decode chunk (< chunk-size) for the step right after an admission")
@@ -63,11 +88,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-watermark", action="store_true")
     p.add_argument("--watermark-ckpt", type=str, default=None)
     p.add_argument("--follow", action="store_true",
-                   help="stdin daemon (not ported yet: ROADMAP.md A.9)")
+                   help="Daemon (with --requests -): admit JSONL requests from stdin as they "
+                        "arrive, write each wav when its request finishes, exit at EOF once "
+                        "everything drains")
     p.add_argument("--http", type=str, default=None, metavar="[HOST:]PORT",
-                   help="HTTP daemon (not ported yet: ROADMAP.md A.9)")
+                   help="HTTP daemon: POST /generate (a request line's JSON) answers audio/wav; "
+                        "GET /health, GET /metrics, POST /prefixes, POST /shutdown. Default host "
+                        "127.0.0.1; port 0 takes a free one (printed)")
+    p.add_argument("--http-queue", type=int, default=64,
+                   help="Requests waiting for a slot beyond which a POST /generate gets an "
+                        "immediate 503 (0: no bound)")
     p.add_argument("--warmup", action="store_true",
-                   help="Run (on a card: capture) every serving function before the requests")
+                   help="Run (on a card: capture) every serving function, registered prefixes "
+                        "included, before the requests")
     p.add_argument("--stream", action="store_true",
                    help="per-request audio streaming (not ported yet: ROADMAP.md A.9 and A.14)")
     add_tiny_test_flag(p)
@@ -76,19 +109,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_requests(path: str) -> list:
-    with open(path) as f:
+    f = sys.stdin if path == "-" else open(path)
+    try:
         return [json.loads(line) for line in f if line.strip()]
+    finally:
+        if f is not sys.stdin:
+            f.close()
 
 
 def _refuse_unported(args) -> None:
     from csm_torch.generator import _waits
 
     for flag, what, item in (
-        (args.http, "the HTTP daemon (--http)", "A.9, the next serving PR"),
-        (args.follow, "the stdin daemon (--follow)", "A.9, the next serving PR"),
         (args.stream, "per-request audio streaming (--stream)", "A.9 and A.14"),
-        (args.prefix, "shared-prefix serving (--prefix)", "A.9, the next serving PR"),
-        (args.window is not None, "sliding-window serving (--window)", "A.9, the next serving PR"),
         (args.adapter, "multi-LoRA serving (--adapter)", "A.10b"),
         (args.lora_path is not None, "LoRA adapters (--lora-path)", "A.10b"),
     ):
@@ -96,22 +129,366 @@ def _refuse_unported(args) -> None:
             raise _waits(what, item)
 
 
+class _StdinPoller:
+    """The complete lines stdin holds right now, without blocking.
+
+    Reads the raw fd with ``os.read``: a buffered ``readline`` would keep
+    the lines after the first of a multi-line write where ``select`` cannot
+    see them, and would block on a partial line.  A partial line waits in
+    ``buf`` for its newline, or for EOF."""
+
+    def __init__(self, fd: int = 0):
+        self.fd = fd
+        self.buf = b""
+        self.eof = False
+
+    def poll(self):
+        """Returns (lines, eof)."""
+        import select
+
+        while not self.eof and select.select([self.fd], [], [], 0.0)[0]:
+            chunk = os.read(self.fd, 65536)
+            if chunk == b"":
+                self.eof = True
+                break
+            self.buf += chunk
+        *complete, rest = self.buf.split(b"\n")
+        if self.eof and rest:
+            complete.append(rest)  # an unterminated last line
+            rest = b""
+        self.buf = rest
+        lines = [raw.decode("utf-8", errors="replace").strip() for raw in complete]
+        return [ln for ln in lines if ln], self.eof
+
+
+def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
+    """The stdin daemon: poll for JSONL lines, admit requests at chunk
+    boundaries, emit each result as it finishes; at EOF, exit once nothing
+    is pending or active.  Returns (served, frames, wall seconds)."""
+    pending = []
+    n_served = total_frames = n_seen = 0
+    in_flight = set()  # request ids: two in flight with one id would share a wav path
+    poller = _StdinPoller()
+    eof = False
+    t0 = time.time()
+    while True:
+        if not eof:
+            lines, eof = poller.poll()
+            for line in lines:
+                try:
+                    r = json.loads(line)
+                except ValueError as e:
+                    print(f"  bad request line skipped: {e}", file=sys.stderr)
+                    continue
+                if isinstance(r, dict) and ("register_prefix" in r or "unregister_prefix" in r):
+                    try:
+                        if "register_prefix" in r:
+                            spec = r["register_prefix"]
+                            register_prefix_file(spec["name"], spec["path"])
+                        else:
+                            server.unregister_prefix(r["unregister_prefix"])
+                            print(f"  prefix {r['unregister_prefix']!r} unregistered",
+                                  file=sys.stderr)
+                    except Exception as e:  # the daemon outlives a bad spec
+                        print(f"  prefix op failed: {e!r}", file=sys.stderr)
+                    continue
+                if isinstance(r, dict) and "cancel" in r:
+                    cid = r["cancel"]
+                    n_before = len(pending)
+                    pending = [p for p in pending if p.request_id != cid]
+                    res = server.cancel(cid)
+                    if res is not None or len(pending) != n_before:
+                        in_flight.discard(cid)
+                        if res is not None:
+                            emit_result(res)  # its partial wav
+                        print(f"  cancelled {cid!r}" + (f" after {res.n_steps} frames" if res
+                                                        else " (not yet admitted)"),
+                              file=sys.stderr)
+                    else:
+                        print(f"  cancel {cid!r}: not in flight", file=sys.stderr)
+                    continue
+                try:
+                    sr = to_stream_request(n_seen, r)
+                except Exception as e:  # the daemon outlives a malformed request
+                    rid = r.get("id", n_seen) if isinstance(r, dict) else n_seen
+                    print(f"  bad request {rid!r} skipped: {e!r}", file=sys.stderr)
+                    sr = None
+                n_seen += 1
+                if sr is None:
+                    continue
+                if sr.request_id in in_flight:
+                    print(f"  duplicate in-flight id {sr.request_id!r} rejected", file=sys.stderr)
+                    continue
+                in_flight.add(sr.request_id)
+                pending.append(sr)
+        while pending:
+            try:
+                if server.submit(pending[0]) is None:
+                    break  # no free slot: next tick
+            except ValueError as e:  # e.g. its prefix was unregistered while it waited
+                sr = pending.pop(0)
+                in_flight.discard(sr.request_id)
+                print(f"  request {sr.request_id!r} dropped at submit: {e}", file=sys.stderr)
+                continue
+            pending.pop(0)
+        for res in server.step():
+            emit_result(res)
+            in_flight.discard(res.request_id)
+            n_served += 1
+            total_frames += res.n_steps
+        if not server.active.any() and not pending:
+            if eof:
+                break
+            time.sleep(0.02)  # nothing to decode: wait for stdin
+    return n_served, total_frames, time.time() - t0
+
+
+def _make_http_handler(server, inbox, stop, stats_box):
+    """The request handler class of ``_serve_http``.  Handler threads only
+    parse, queue and wait: the main thread serves.  A full ``inbox`` (the
+    ``--http-queue`` bound) answers 503 at once."""
+    import queue
+    import threading
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        timeout = 120  # socket timeout: a stalled client cannot pin a thread
+        max_body = 16 * 1024 * 1024  # request JSON (context audio is paths)
+
+        def log_message(self, fmt, *a):
+            pass
+
+        def _json_reply(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _body(self):
+            n = int(self.headers.get("Content-Length", "0"))
+            if not 0 <= n <= self.max_body:
+                raise OverflowError("body too large")
+            req = json.loads(self.rfile.read(n))
+            if not isinstance(req, dict):
+                raise ValueError("request body must be a JSON object")
+            return req
+
+        def do_GET(self):
+            if self.path == "/metrics":  # Prometheus text exposition
+                lines = []
+                for name, typ, val in (
+                    ("csm_serve_slots", "gauge", server.n_slots),
+                    ("csm_serve_active_slots", "gauge", int(server.active.sum())),
+                    ("csm_serve_queue_depth", "gauge", inbox.qsize()),
+                    ("csm_serve_requests_total", "counter", stats_box.get("served", 0)),
+                    ("csm_serve_frames_total", "counter", stats_box.get("frames", 0)),
+                    ("csm_serve_uptime_seconds", "gauge",
+                     time.time() - stats_box.get("t0", time.time())),
+                ):
+                    lines += [f"# TYPE {name} {typ}", f"{name} {val}"]
+                body = ("\n".join(lines) + "\n").encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
+            if self.path != "/health":
+                return self._json_reply(404, {"error": "GET /health or /metrics"})
+            self._json_reply(200, {
+                "status": "ok", "n_slots": server.n_slots, "active": int(server.active.sum()),
+                "prefixes": sorted(server._prefixes),
+                **{k: v for k, v in stats_box.items() if k != "t0"},
+            })
+
+        def do_POST(self):
+            if self.path == "/shutdown":
+                stop.set()
+                return self._json_reply(200, {"status": "shutting down"})
+            if self.path not in ("/generate", "/prefixes"):
+                return self._json_reply(404, {"error": "POST /generate, /prefixes or /shutdown"})
+            try:
+                req = self._body()
+            except OverflowError as e:
+                return self._json_reply(413, {"error": str(e)})
+            except (ValueError, OSError) as e:
+                return self._json_reply(400, {"error": f"bad request: {e}"})
+            done, holder = threading.Event(), {}
+            if self.path == "/prefixes":  # {"name", "path"} registers, {"name", "unload": true} drops
+                if "name" not in req:
+                    return self._json_reply(400, {"error": 'body must be {"name", "path"} or '
+                                                           '{"name", "unload": true}'})
+                inbox.put((("prefix", req), done, holder))
+                done.wait()
+                return self._json_reply(400 if "error" in holder else 200,
+                                        holder.get("json", holder))
+            try:
+                inbox.put_nowait((req, done, holder))
+            except queue.Full:  # backpressure: the bounded admission queue
+                return self._json_reply(503, {"error": "server overloaded, retry later"})
+            done.wait()
+            if "error" in holder:
+                return self._json_reply(400, {"error": holder["error"]})
+            wav = holder["wav"]
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length", str(len(wav)))
+            self.send_header("X-Frames", str(holder["frames"]))
+            self.end_headers()
+            self.wfile.write(wav)
+
+    return Handler
+
+
+def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
+                register_prefix_file):
+    """The HTTP daemon.  Handler threads queue each request and wait on its
+    event; the main thread alone drives the server (admits at chunk
+    boundaries, decodes, turns each finished request into wav bytes) and
+    fulfils the waiters, so concurrent POSTs decode together.  SIGTERM,
+    SIGINT and POST /shutdown drain what is in flight, then return.  If the
+    drive loop dies, every waiting handler is answered before the exception
+    propagates.  Returns (served, frames, wall seconds)."""
+    import queue
+    import signal
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    host, _, port = address.rpartition(":")
+    inbox: "queue.Queue" = queue.Queue(maxsize=queue_bound)
+    stop = threading.Event()
+    stats_box = {"served": 0, "frames": 0, "t0": time.time()}
+    httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
+                                _make_http_handler(server, inbox, stop, stats_box))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def drain(signum, frame):
+        print(f"signal {signum}: draining in-flight requests...", flush=True)
+        stop.set()
+
+    prev = {s: signal.signal(s, drain) for s in (signal.SIGTERM, signal.SIGINT)}
+    bound_host, bound_port = httpd.server_address[:2]
+    print(f"Serving on http://{bound_host}:{bound_port} (POST /generate, GET /health, "
+          f"GET /metrics, POST /prefixes, POST /shutdown; SIGTERM drains)", flush=True)
+    waiters = {}  # request id -> (done event, holder)
+    pending = []
+    n_seen = 0
+    t0 = time.time()
+
+    def admit(req, done, holder):
+        nonlocal n_seen
+        if isinstance(req, tuple):  # ("prefix", spec)
+            spec = req[1]
+            try:
+                if spec.get("unload"):
+                    server.unregister_prefix(spec["name"])
+                    holder["json"] = {"status": "unloaded", "name": spec["name"]}
+                else:
+                    pre = register_prefix_file(spec["name"], spec["path"])
+                    holder["json"] = {"status": "loaded", "name": spec["name"],
+                                      "frames": pre.length, "bucket": pre.bucket}
+            except Exception as e:  # network-facing: the daemon outlives a bad spec
+                holder["error"] = repr(e)
+            done.set()
+            return
+        try:
+            sr = to_stream_request(n_seen, req)
+            if sr is None:
+                holder["error"] = "request rejected (see the server log)"
+        except Exception as e:  # network-facing: the daemon outlives a malformed request
+            holder["error"] = repr(e)
+            sr = None
+        if sr is None:
+            done.set()
+        else:
+            sr.request_id = n_seen  # a key of its own, whatever id the client gave
+            waiters[n_seen] = (done, holder)
+            pending.append(sr)
+        n_seen += 1
+
+    try:
+        while not (stop.is_set() and not pending and not server.active.any() and inbox.empty()):
+            try:
+                # wait briefly for an arrival, then drain the inbox: k clients at
+                # once admit into one decode, not one a chunk
+                admit(*inbox.get(timeout=0.02 if (pending or server.active.any()) else 0.25))
+                while True:
+                    admit(*inbox.get_nowait())
+            except queue.Empty:
+                pass
+            while pending:
+                try:
+                    if server.submit(pending[0]) is None:
+                        break  # no free slot: next tick
+                except ValueError as e:  # e.g. its prefix was dropped while it waited
+                    sr = pending.pop(0)
+                    done, holder = waiters.pop(sr.request_id)
+                    holder["error"] = str(e)
+                    done.set()
+                    continue
+                pending.pop(0)
+            for res in server.step():
+                done, holder = waiters.pop(res.request_id)
+                holder["wav"] = finish_audio(res)
+                holder["frames"] = res.frames.shape[0]
+                done.set()
+                stats_box["served"] += 1
+                stats_box["frames"] += res.frames.shape[0]
+    finally:
+        for done, holder in waiters.values():
+            if not done.is_set():
+                holder.setdefault("error", "server loop terminated")
+                done.set()
+        waiters.clear()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        for s, h in prev.items():
+            signal.signal(s, h)
+        # a request that reached the inbox after the last check is answered, not left hanging
+        while True:
+            try:
+                _, done, holder = inbox.get_nowait()
+            except queue.Empty:
+                break
+            holder["error"] = "server shutting down"
+            done.set()
+    return stats_box["served"], stats_box["frames"], time.time() - t0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    if args.requests is None:
-        print("--requests is required", file=sys.stderr)
+    raw = []
+    if args.http:
+        if args.follow or args.requests is not None:
+            print("--http takes its requests over HTTP: no --follow, no --requests",
+                  file=sys.stderr)
+            return 2
+        print(f"Loading model... (--http {args.http})")
+    elif args.follow:
+        if args.requests != "-":
+            print("--follow requires --requests - (stdin)", file=sys.stderr)
+            return 2
+        print("Loading model... (--follow: requests from stdin)")
+    elif args.requests is None:
+        print("--requests is required (or --http)", file=sys.stderr)
         return 2
-    raw = load_requests(args.requests)
-    if not raw:
-        print("no requests", file=sys.stderr)
-        return 1
-    from csm_torch.data.audio import load_audio, save_wav
+    else:
+        raw = load_requests(args.requests)
+        if not raw:
+            print("no requests", file=sys.stderr)
+            return 1
+        print(f"Loading model... ({len(raw)} requests)")
+    from csm_torch.data import frames as fr
+    from csm_torch.data.audio import load_audio, save_wav, wav_bytes
     from csm_torch.generator import MS_PER_FRAME, Segment
     from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length
     from csm_torch.serving import BatchedServer, StreamRequest
 
-    print(f"Loading model... ({len(raw)} requests)")
     t0 = time.time()
     # the weights load at the server's dtype (the 8B flavor can only load
     # quantized); the server keeps a tree that is quantized already
@@ -128,37 +505,113 @@ def main(argv=None) -> int:
         w = load_watermarker(args.watermark_ckpt, device=generator.device)
         wmark = lambda audio, sr: watermark(w, audio, sr)  # noqa: E731
     print(f"Model ready in {time.time() - t0:.1f}s")
+    cache_len = args.window or args.max_seq_len
+
+    def segments(ctx):
+        return [Segment(speaker=int(c["speaker"]), text=c["text"],
+                        audio=load_audio(c["audio"], generator.sample_rate)) for c in ctx]
 
     def to_stream_request(i, r):
-        ctx = [Segment(speaker=int(c["speaker"]), text=c["text"],
-                       audio=load_audio(c["audio"], generator.sample_rate))
-               for c in r.get("context", [])]
-        tokens, mask = generator._build_prompt(r["text"], int(r.get("speaker", 0)), ctx)
-        try:  # the server's check: the prompt's bucket plus the frame budget must fit
-            bucket = bucket_length(
-                tokens.shape[0], tuple(b for b in PROMPT_BUCKETS if b <= args.max_seq_len))
+        rid = r.get("id", i)
+        prefix, pb = r.get("prefix"), 0
+        if prefix is not None:
+            pre = server._prefixes.get(prefix)
+            if pre is None:  # refused here, not by the drive loop's submit
+                print(f"  skipping {rid}: unknown prefix {prefix!r} (registered: "
+                      f"{sorted(server._prefixes)})", file=sys.stderr)
+                return None
+            pb = pre.bucket
+        # with a prefix the request's own frames are its extra context and text
+        tokens, mask = generator._build_prompt(r["text"], int(r.get("speaker", 0)),
+                                               segments(r.get("context", [])))
+        try:  # the server's checks, on the prompt's bucket
+            bucket = bucket_length(tokens.shape[0],
+                                   tuple(b for b in PROMPT_BUCKETS if b <= cache_len))
         except ValueError:
-            bucket = args.max_seq_len
-        if bucket + 1 > args.max_seq_len:
-            print(f"  skipping {r.get('id', i)}: prompt ({tokens.shape[0]} frames, bucket "
-                  f"{bucket}) leaves no room in max_seq_len {args.max_seq_len}", file=sys.stderr)
-            return None
-        budget_ms = float(r.get("max_audio_length_ms", 10_000))
-        max_frames = max(1, min(int(budget_ms / MS_PER_FRAME), args.max_seq_len - bucket))
-        return StreamRequest(tokens, mask, max_frames=max_frames, request_id=r.get("id", i))
+            bucket = cache_len
+        budget = int(float(r.get("max_audio_length_ms", 10_000)) / MS_PER_FRAME)
+        if args.window is not None:  # the ring evicts: the budget is not capped
+            if pb + bucket + 2 * args.chunk_size + 2 > args.window:
+                print(f"  skipping {rid}: prompt ({tokens.shape[0]} frames, bucket "
+                      f"{pb + bucket} with its prefix) leaves no decode ring in window "
+                      f"{args.window}", file=sys.stderr)
+                return None
+            max_frames = max(1, budget)
+        else:
+            if pb + bucket + 1 > args.max_seq_len:
+                print(f"  skipping {rid}: prompt ({tokens.shape[0]} frames, bucket "
+                      f"{pb + bucket} with its prefix) leaves no room in max_seq_len "
+                      f"{args.max_seq_len}", file=sys.stderr)
+                return None
+            max_frames = max(1, min(budget, args.max_seq_len - pb - bucket))
+        return StreamRequest(tokens, mask, max_frames=max_frames, request_id=rid, prefix=prefix)
 
+    ramp_chunk = args.ramp_chunk
+    if ramp_chunk is None and args.http and args.chunk_size > 2:
+        ramp_chunk = 2  # an HTTP client waits for its answer: a short first chunk
     server = BatchedServer(
         generator.params, generator.args, n_slots=args.n_slots, max_seq_len=args.max_seq_len,
         temperature=args.temperature, topk=args.topk, compute_dtype=generator.compute_dtype,
-        chunk_size=args.chunk_size, ramp_chunk=args.ramp_chunk, weight_dtype=wd,
-        kv_dtype=args.kv_dtype, pipelined=args.pipelined, device=generator.device,
+        chunk_size=args.chunk_size, ramp_chunk=ramp_chunk, weight_dtype=wd,
+        kv_dtype=args.kv_dtype, pipelined=args.pipelined, window=args.window,
+        device=generator.device,
     )
+
+    def register_prefix_file(name, path):
+        """A preset's context file ({"context": [{audio, text, speaker}]}
+        or a bare list), Mimi-encoded and registered under ``name``."""
+        with open(path) as f:
+            ctx = json.load(f)
+        if isinstance(ctx, dict):
+            ctx = ctx.get("context", [])
+        t0p = time.time()
+        tokens, mask = fr.concat_frames([generator._segment_frames(s) for s in segments(ctx)])
+        pre = server.register_prefix(name, tokens, mask)
+        print(f"  prefix {name!r}: {pre.length} frames (bucket {pre.bucket}) cached in "
+              f"{time.time() - t0p:.2f}s", file=sys.stderr)
+        return pre
+
+    for spec in args.prefix or ():
+        if "=" not in spec:
+            print(f"--prefix must be NAME=FILE.json, got {spec!r}", file=sys.stderr)
+            return 2
+        register_prefix_file(*spec.split("=", 1))
     server.reset(args.seed)
     if args.warmup:
         print("Warming serving functions...", flush=True)
         print(f"Warmup done in {server.warmup(verbose=True):.1f}s", flush=True)
         server.reset(args.seed)
 
+    def finish_audio(res):
+        """A result's wav samples: Mimi decode, then the watermark."""
+        audio = (generator.mimi.decode(res.frames.T) if res.frames.shape[0]
+                 else np.zeros(0, np.float32))
+        if wmark is not None and audio.shape[0]:
+            audio, _ = wmark(audio, generator.sample_rate)
+        return audio
+
+    def emit_result(res):
+        out = os.path.join(args.output_dir, f"{res.request_id}.wav")
+        save_wav(out, finish_audio(res), generator.sample_rate)
+        n = res.frames.shape[0]
+        print(f"  {out}: {n} frames ({n * MS_PER_FRAME / 1000:.2f}s)", flush=True)
+
+    if args.http:
+        n_served, frames, wall = _serve_http(
+            args.http, args.http_queue, server, to_stream_request,
+            lambda res: wav_bytes(finish_audio(res), generator.sample_rate),
+            register_prefix_file)
+        print(f"HTTP served {n_served} requests in {wall:.2f}s: {frames} frames "
+              f"(weights {server.weight_dtype}, {args.n_slots} slots)")
+        return 0
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.follow:
+        n_served, frames, wall = _serve_follow(server, to_stream_request, emit_result,
+                                               register_prefix_file)
+        print(f"Served {n_served} requests in {wall:.2f}s: {frames} frames, "
+              f"{frames / max(wall, 1e-9):.1f} frames/s "
+              f"(weights {server.weight_dtype}, {args.n_slots} slots)")
+        return 0
     requests, seen = [], set()
     for i, r in enumerate(raw):
         sr = to_stream_request(i, r)
@@ -172,18 +625,11 @@ def main(argv=None) -> int:
     if not requests:
         print("no servable requests", file=sys.stderr)
         return 1
-    os.makedirs(args.output_dir, exist_ok=True)
     t0 = time.time()
     results, stats = server.run(requests)
     wall = time.time() - t0
     for res in results:
-        out = os.path.join(args.output_dir, f"{res.request_id}.wav")
-        n = res.frames.shape[0]
-        audio = generator.mimi.decode(res.frames.T) if n else np.zeros(0, np.float32)
-        if wmark is not None and audio.shape[0]:
-            audio, _ = wmark(audio, generator.sample_rate)
-        save_wav(out, audio, generator.sample_rate)
-        print(f"  {out}: {n} frames ({n * MS_PER_FRAME / 1000:.2f}s)")
+        emit_result(res)
     print(f"Served {len(results)} requests in {wall:.2f}s: {stats['total_frames']} frames, "
           f"{stats['frames_per_s']:.1f} frames/s decode, "
           f"aggregate RTF {stats['aggregate_rtf']:.2f} "

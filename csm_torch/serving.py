@@ -29,12 +29,31 @@ graphs of one server sharing one memory pool:
     slot; the copy is one row of the cache (~34 MB at CSM-1B, 1024
     columns).
 
+  * ``Prefill`` also runs a registered prefix's admission, one per
+    (prefix bucket, prompt bucket): the prefix's K/V blocks are copied into
+    the scratch row's first columns before the replay (the graph reads
+    them at a fixed address), the request's own frames follow at positions
+    continuing the prefix; and a prefix's registration, one per prefix
+    bucket, over a scratch state of the bucket's columns.
+
+Shared prefixes (``register_prefix``, a request's ``prefix``): a voice
+preset's context runs through the backbone once; a request naming it
+starts from a copy of its K/V, so removing or replacing a prefix leaves
+admitted streams alone.
+
+Sliding window (``window=``): the cache holds ``window`` columns; a row
+keeps its prompt (and prefix) in columns [0, anchor) and its decode frames
+wrap over [anchor, window), positions staying absolute, so a stream
+attends its prompt and its latest frames and runs past ``max_seq_len``.
+Before a row's position reaches the RoPE horizon, a re-anchor shifts its
+positions down and rotates its cached keys by the same amount (RoPE is
+relative: the scores are unchanged).
+
 On the CPU the same functions run without capture.  Sampling draws its
 uniforms from a ``torch.Generator`` that ``reset(seed)`` seeds, outside the
 graphs; the JAX server's ``fold_in`` key schedule is not reproduced, so the
-two servers' codes are equal at topk=1 only.  Meshes, adapter banks,
-shared prefixes and sliding windows raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+two servers' codes are equal at topk=1 only.  Meshes and adapter banks
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,9 +67,11 @@ import torch
 
 from csm_torch.generator import _waits
 from csm_torch.models import csm
-from csm_torch.models.config import ModelArgs
+from csm_torch.models.config import ModelArgs, with_horizon
 from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length, capture_graphs, replay
-from csm_torch.ops.kvcache import RowOffsets, cache_leaves, reset_kv_cache
+from csm_torch.ops.kvcache import (KVCache, KVHalf, QuantKV, RowOffsets, cache_leaves,
+                                   quantize_kv_rows, reset_kv_cache)
+from csm_torch.ops.rope import apply_rope, scaled_rope_freqs
 from csm_torch.utils import quantize as qz
 from csm_torch.utils.device import resolve_device
 
@@ -63,8 +84,10 @@ class StreamRequest:
 
     ``on_frames(request_id, new_frames (n, K) int32, done)`` is called from
     the serving thread as chunks complete; ``done=True`` fires exactly
-    once, possibly with n=0.  ``adapter`` and ``prefix`` wait for later
-    slices and raise when set."""
+    once, possibly with n=0.  ``prefix`` names a prefix registered with
+    ``BatchedServer.register_prefix``: the stream starts from its cached
+    context, and ``tokens`` holds only the request's own frames.
+    ``adapter`` waits for a later slice and raises when set."""
 
     tokens: np.ndarray  # (T, K+1) int32
     mask: np.ndarray  # (T, K+1) bool
@@ -86,6 +109,20 @@ class StreamResult:
     times: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
+class CachedPrefix(NamedTuple):
+    """A registered context's backbone K/V on the device: a voice preset
+    (context audio and transcript) shared by the requests that name it.
+    Admission copies the blocks into the slot's row.  ~32 KB a token at
+    CSM-1B bf16, half that with the int8 KV."""
+
+    k: KVHalf  # (L, 1, PB, Hkv, D), or QuantKV halves
+    v: KVHalf
+    kv_pos: torch.Tensor  # (1, PB) int32: 0..length-1, then PAD_POS
+    length: int  # real frames
+    bucket: int  # PB: the cache columns it takes
+    adapter: Optional[str]
+
+
 class SlotState(NamedTuple):
     """The device-resident control plane, one entry per row."""
 
@@ -93,13 +130,17 @@ class SlotState(NamedTuple):
     pos: torch.Tensor  # (B,) int32: position of the fed token
     live: torch.Tensor  # (B,) bool
     remaining: torch.Tensor  # (B,) int32: frames the row may still emit
+    # sliding window: columns [0, anchor) hold the prompt (and prefix) and
+    # are never overwritten; decode frames wrap over [anchor, window).
+    # Prefix bucket + prompt bucket; unused outside windowed mode.
+    anchor: torch.Tensor  # (B,) int32
 
 
 def init_slot_state(batch: int, K: int, device) -> SlotState:
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return SlotState(z(batch, K), z(batch), z(batch, dtype=torch.bool), z(batch))
+    return SlotState(z(batch, K), z(batch), z(batch, dtype=torch.bool), z(batch), z(batch))
 
 
 class _InFlight(NamedTuple):
@@ -129,7 +170,10 @@ class DecodeStep:
     and the control plane on the device: emit = live and not EOS; a row
     goes dead on EOS or when its budget runs out.  Dead rows query at
     PAD_POS and write at their column, which may run past the cache's end
-    (dropped, ``write_rows``); their results are never read."""
+    (dropped, ``write_rows``); their results are never read.  In windowed
+    mode each row's column first wraps into its ring [anchor, window); a
+    column past ``window`` (the capture's sentinel) is left where it is,
+    and its write dropped."""
 
     def __init__(self, server: "BatchedServer", c: int):
         args, dev = server.args, server.device
@@ -138,7 +182,7 @@ class DecodeStep:
         if c == server.n_slots:  # the full batch decodes the resident state
             self.state, self.slots, self.idx = server.state, server.slots, None
         else:
-            st = csm.init_frame_state(args, c, server.compute_dtype, server.max_seq_len, dev,
+            st = csm.init_frame_state(args, c, server.compute_dtype, server.cache_len, dev,
                                       server.kv_dtype)
             self.state = st._replace(offset=RowOffsets(torch.zeros(c, dtype=torch.int64, device=dev)))
             self.slots = init_slot_state(c, K, dev)
@@ -157,6 +201,10 @@ class DecodeStep:
         srv, sl = self.server, self.slots
         K = srv.args.audio_num_codebooks
         live = sl.live
+        if srv.window is not None:  # the ring write: the oldest decode column goes
+            C, cols, anchor = srv.cache_len, self.state.offset.cols, sl.anchor.long()
+            ring = anchor + torch.remainder(cols - anchor, (C - anchor).clamp_min(1))
+            cols.copy_(torch.where(cols <= C, ring, cols))
         self.tokens[:, 0, :K] = sl.last_frame
         pos = torch.where(live, sl.pos, csm.PAD_POS)[:, None]
         frame, _ = csm.generate_frame(
@@ -178,13 +226,14 @@ class DecodeStep:
 
     def capture(self) -> None:
         """Capture ``step``.  Its eager warm-up pass runs with every row dead
-        and every column past the cache's end, so it writes no cache entry;
-        the control state it advances is put back after."""
-        T = self.server.max_seq_len
+        and every column past the cache's end, where no ring wraps it (a live
+        row's column is at most the cache's length), so it writes no cache
+        entry; the control state it advances is put back after.  Capacities
+        are captured on first use, while other rows are live."""
         state = (*self.slots, self.state.offset.cols)
         keep = [x.clone() for x in state]
         self.slots.live.zero_()
-        self.state.offset.cols.fill_(T)
+        self.state.offset.cols.fill_(self.server.cache_len + 1)
         self.t.zero_()
         try:
             (self.graph,) = capture_graphs([self.step], self.server.device, self.server.pool)
@@ -238,51 +287,71 @@ class Prefill:
     row copied into slot ``slot`` of the resident state and the slot's
     control state set (live unless frame 0 is EOS or the budget is 1).
     The scratch cache is never cleared: its ``kv_pos`` is reset, so the
-    columns past the prompt are never attended."""
+    columns past the prompt are never attended.
 
-    def __init__(self, server: "BatchedServer", bucket: int):
+    ``prefix`` = PB > 0: the admission of a request naming a prefix of
+    bucket PB.  ``load_prefix`` copies the prefix's blocks into the scratch
+    row's columns [0, PB) before the run (the graph reads them there); the
+    request's frames go to columns [PB, PB + bucket) at positions from the
+    prefix's length on.  ``admit=False``: a prefix's registration, over a
+    scratch state of ``bucket`` columns; its cache is the result."""
+
+    def __init__(self, server: "BatchedServer", bucket: int, prefix: int = 0, admit: bool = True):
         args, dev = server.args, server.device
         K = args.audio_num_codebooks
-        self.server, self.bucket = server, bucket
+        self.server, self.bucket, self.prefix, self.admit = server, bucket, prefix, admit
         self.tokens = torch.zeros((1, bucket, K + 1), dtype=torch.int32, device=dev)
         self.mask = torch.zeros((1, bucket, K + 1), dtype=torch.bool, device=dev)
         self.length = torch.ones((1,), dtype=torch.int32, device=dev)
+        self.p_len = torch.zeros((1,), dtype=torch.int32, device=dev)  # the prefix's frames
         self.budget = torch.ones((1,), dtype=torch.int32, device=dev)
         self.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.bucket_col = torch.full((1,), bucket, dtype=torch.int64, device=dev)
+        self.end_col = torch.full((1,), prefix + bucket, dtype=torch.int64, device=dev)
         self.col = torch.arange(bucket, dtype=torch.int32, device=dev)
         self.uniforms = torch.zeros((K, 1, 1), dtype=torch.float32, device=dev)
-        self.sub = csm.init_frame_state(args, 1, server.compute_dtype, server.max_seq_len, dev,
+        self.sub = csm.init_frame_state(args, 1, server.compute_dtype,
+                                        server.cache_len if admit else bucket, dev,
                                         server.kv_dtype)
         self.dec_bufs = csm.init_decoder_buffers(args, 1, server.compute_dtype, dev)
         self.graph = None
 
+    def load_prefix(self, pre: CachedPrefix) -> None:
+        """The prefix's K/V and positions into the scratch row's first
+        columns (device copies, enqueued before the run)."""
+        pb = self.prefix
+        for dst, src in zip(cache_leaves(self.sub.cache), cache_leaves(KVCache(pre.k, pre.v))):
+            dst[:, :, :pb].copy_(src)
+        self.sub.kv_pos[:, :pb].copy_(pre.kv_pos)
+
     def prefill(self) -> None:
-        srv, sub = self.server, self.sub
-        sub.kv_pos.fill_(csm.PAD_POS)
+        srv, sub, pb = self.server, self.sub, self.prefix
+        sub.kv_pos[:, pb:].fill_(csm.PAD_POS)
         col = self.col[None, :]
-        input_pos = torch.where(col < self.length[:, None], col, csm.PAD_POS)
+        input_pos = torch.where(col < self.length[:, None], self.p_len[:, None] + col, csm.PAD_POS)
         frame, _ = csm.generate_frame(
-            srv.params, srv.args, None, self.tokens, self.mask, input_pos, sub,
+            srv.params, srv.args, None, self.tokens, self.mask, input_pos, sub._replace(offset=pb),
             srv.temperature_t, srv.topk, srv.compute_dtype, last_idx=self.length - 1,
             uniforms=self.uniforms, dec_bufs=self.dec_bufs,
         )
+        if not self.admit:
+            return
         for full, new in zip(cache_leaves(srv.state.cache), cache_leaves(sub.cache)):
             full.index_copy_(1, self.slot, new)
         srv.state.kv_pos.index_copy_(0, self.slot, sub.kv_pos)
-        srv.offsets.index_copy_(0, self.slot, self.bucket_col)
+        srv.offsets.index_copy_(0, self.slot, self.end_col)
         sl = srv.slots
         eos = (frame == 0).all(dim=1)
         sl.last_frame.index_copy_(0, self.slot, frame)
-        sl.pos.index_copy_(0, self.slot, self.length)
+        sl.pos.index_copy_(0, self.slot, self.p_len + self.length)
         sl.live.index_copy_(0, self.slot, ~eos & (self.budget > 1))
         sl.remaining.index_copy_(0, self.slot, self.budget - 1)
+        sl.anchor.index_copy_(0, self.slot, self.end_col.to(torch.int32))
         srv.frame0.index_copy_(0, self.slot, frame)
 
     def run(self) -> None:
-        """Admit the loaded request.  The first run on a card captures the
-        graph: its eager warm-up pass admits this same request, which the
-        replay then repeats."""
+        """Admit (or register) the loaded request.  The first run on a card
+        captures the graph: its eager warm-up pass does this same work,
+        which the replay then repeats."""
         if self.server.graphs and self.graph is None:
             (self.graph,) = capture_graphs([self.prefill], self.server.device, self.server.pool)
         if self.graph is None:
@@ -309,8 +378,11 @@ class BatchedServer:
     "int8-decoder" / "int4" quantize them here (``utils/quantize.py``),
     "auto" is int8 (the JAX package's policy).  ``kv_dtype``: "bf16" or
     "int8" (a ``QuantKV`` cache).  ``temperature`` may be changed between
-    steps; ``topk`` is fixed.  On a card the functions are captured
-    (``graphs``); on the CPU they run without capture."""
+    steps; ``topk`` is fixed.  ``window``: a sliding-window cache of that
+    many columns for sessions of any length (``max_frames`` is not capped
+    by the cache), re-anchored ``reanchor_headroom`` positions below the
+    RoPE horizon.  On a card the functions are captured (``graphs``); on
+    the CPU they run without capture."""
 
     def __init__(
         self,
@@ -329,14 +401,31 @@ class BatchedServer:
         adapters: Optional[dict] = None,
         pipelined: bool = False,
         window: Optional[int] = None,
+        reanchor_headroom: int = 1024,
         device="cuda",
     ):
         if mesh is not None:
             raise _waits("serving over a device mesh", "A.11")
         if adapters:
             raise _waits("multi-LoRA serving (adapters=)", "A.10b")
+        self.window = window
         if window is not None:
-            raise _waits("sliding-window serving (window=)", "A.9, the next serving PR")
+            if window > max_seq_len:
+                raise ValueError(f"window {window} exceeds max_seq_len {max_seq_len}")
+            if window < 2 * chunk_size + 2:
+                raise ValueError(f"window {window} is too small for chunk_size {chunk_size} "
+                                 f"(need >= {2 * chunk_size + 2})")
+            if reanchor_headroom < 3 * chunk_size + 4:
+                raise ValueError(f"reanchor_headroom {reanchor_headroom} < {3 * chunk_size + 4} "
+                                 f"(3*chunk_size + 4)")
+            # positions run past the cache between re-anchors: the RoPE
+            # table reaches the horizon, no weight changes
+            horizon = max(args.backbone.max_seq_len, window + reanchor_headroom)
+            args = with_horizon(args, horizon)
+            # the host's mirror of each live row's position schedules them
+            self._reanchor_at = horizon - 2 * chunk_size - 2
+            self._reanchor_target = window + chunk_size
+        self.cache_len = window if window is not None else max_seq_len
         if weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be {'|'.join(WEIGHT_DTYPES)}, got {weight_dtype!r}")
         if kv_dtype not in ("bf16", "int8"):
@@ -364,18 +453,28 @@ class BatchedServer:
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
 
         dev, K = self.device, args.audio_num_codebooks
+        bb = args.backbone
+        self._rope_freqs = torch.from_numpy(scaled_rope_freqs(
+            bb.head_dim, bb.rope_base, bb.rope_scale_factor, bb.rope_low_freq_factor,
+            bb.rope_high_freq_factor, bb.rope_old_context_len).astype(np.float32)).to(dev)
         self.offsets = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
-        state = csm.init_frame_state(args, n_slots, compute_dtype, max_seq_len, dev, self.kv_dtype)
+        state = csm.init_frame_state(args, n_slots, compute_dtype, self.cache_len, dev,
+                                     self.kv_dtype)
         self.state = state._replace(offset=RowOffsets(self.offsets))
         self.slots = init_slot_state(n_slots, K, dev)
         self.frame0 = torch.zeros((n_slots, K), dtype=torch.int32, device=dev)
         self.temperature_t = torch.ones((), dtype=torch.float32, device=dev)
         self._decodes: Dict[int, DecodeStep] = {}  # by capacity
         self._prefills: Dict[int, Prefill] = {}  # by bucket
-        # steps run by capacity and prefills by bucket, cumulative: what the
-        # kernels' launch counts follow
+        self._prefix_prefills: Dict[tuple, Prefill] = {}  # by (prefix bucket, bucket)
+        self._register_fns: Dict[int, Prefill] = {}  # by prefix bucket
+        self._prefixes: Dict[str, CachedPrefix] = {}
+        # steps run by capacity, prefills by their own bucket (a prefix's
+        # admission too) and registrations by prefix bucket, cumulative:
+        # what the kernels' launch counts follow
         self.step_calls: Dict[int, int] = {}
         self.prefill_calls: Dict[int, int] = {}
+        self.register_calls: Dict[int, int] = {}
         self.reset()
 
     # ---- state ----
@@ -410,14 +509,19 @@ class BatchedServer:
         # its first frame on the host; handed to its StreamResult
         self.slot_times: List[Dict[str, float]] = [{} for _ in range(n)]
         self.read_wait_s = 0.0  # host seconds spent waiting for chunks' results
+        # each slot's position, exact for live rows (a row's position moves
+        # once a frame it emits): schedules the windowed re-anchors
+        self._pos_host = np.zeros(n, np.int64)
 
     def close(self) -> None:
         """Free the graphs, their pool and every buffer of the capacities
         and buckets; the resident state goes with the server."""
-        for fn in list(self._decodes.values()) + list(self._prefills.values()):
+        fns = (list(self._decodes.values()) + list(self._prefills.values())
+               + list(self._prefix_prefills.values()) + list(self._register_fns.values()))
+        for fn in fns:
             fn.release()
-        self._decodes.clear()
-        self._prefills.clear()
+        for d in (self._decodes, self._prefills, self._prefix_prefills, self._register_fns):
+            d.clear()
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A small host array for a non-blocking copy: pinned on a card, so
@@ -438,10 +542,11 @@ class BatchedServer:
                 ds.capture()
         return ds
 
-    def _prefill(self, bucket: int) -> Prefill:
-        pf = self._prefills.get(bucket)
+    def _prefill(self, bucket: int, prefix: int = 0) -> Prefill:
+        fns, key = (self._prefix_prefills, (prefix, bucket)) if prefix else (self._prefills, bucket)
+        pf = fns.get(key)
         if pf is None:
-            pf = self._prefills[bucket] = Prefill(self, bucket)
+            pf = fns[key] = Prefill(self, bucket, prefix)
         return pf
 
     def _decode_capacity(self, n_live: int) -> int:
@@ -452,41 +557,130 @@ class BatchedServer:
             c *= 2
         return c if c <= self.n_slots // 2 else self.n_slots
 
-    # ---- unported surfaces ----
+    # ---- shared prefixes ----
 
-    def register_prefix(self, *args, **kwargs):
-        raise _waits("shared-prefix serving (register_prefix)", "A.9, the next serving PR")
+    def register_prefix(self, name: str, tokens: np.ndarray, mask: np.ndarray,
+                        adapter: Optional[str] = None) -> CachedPrefix:
+        """Run a shared context ((T, K+1) frames, e.g. a voice preset's
+        segments) through the backbone once and keep its K/V under
+        ``name``; a request with ``prefix=name`` then carries only its own
+        frames.  Registering a name again replaces it for later admissions."""
+        if adapter is not None:
+            raise _waits("prefixes computed under a LoRA adapter", "A.10b")
+        T = int(tokens.shape[0])
+        # a finer bucket list than requests': a short preset leaves more of
+        # the cache to the request
+        bucket = bucket_length(T, tuple(b for b in (32,) + PROMPT_BUCKETS if b <= self.cache_len))
+        if bucket + 1 >= self.cache_len:
+            raise ValueError(f"prefix {name!r}: bucket {bucket} leaves no room for a request in "
+                             f"the {self.cache_len}-column cache")
+        K = self.args.audio_num_codebooks
+        toks = np.zeros((1, bucket, K + 1), np.int32)
+        msk = np.zeros((1, bucket, K + 1), bool)
+        toks[0, :T], msk[0, :T] = tokens, mask
+        reg = self._register_fns.get(bucket)
+        if reg is None:
+            reg = self._register_fns[bucket] = Prefill(self, bucket, admit=False)
+        self._load(reg.tokens, toks)
+        self._load(reg.mask, msk)
+        self._load(reg.length, np.array([T], np.int32))
+        reg.run()
+        self.register_calls[bucket] = self.register_calls.get(bucket, 0) + 1
+        blocks = [x.clone() for x in cache_leaves(reg.sub.cache)]
+        k, v = ((QuantKV(*blocks[:2]), QuantKV(*blocks[2:])) if self.kv_dtype is not None
+                else blocks)
+        pre = CachedPrefix(k, v, reg.sub.kv_pos.clone(), T, bucket, None)
+        self._prefixes[name] = pre
+        return pre
+
+    def unregister_prefix(self, name: str) -> None:
+        """Drop a prefix: later requests naming it are refused; streams
+        admitted from it keep their copy."""
+        if name not in self._prefixes:
+            raise ValueError(f"unknown prefix {name!r} (registered: {sorted(self._prefixes)})")
+        del self._prefixes[name]
 
     def add_adapter(self, *args, **kwargs):
         raise _waits("multi-LoRA serving (add_adapter)", "A.10b")
+
+    def remove_adapter(self, *args, **kwargs):
+        raise _waits("multi-LoRA serving (remove_adapter)", "A.10b")
+
+    # ---- sliding-window re-anchor ----
+
+    def _maybe_reanchor(self) -> None:
+        """Re-anchor every live row whose position nears the RoPE horizon
+        (after reading a chunk in flight: the state must not move under
+        it)."""
+        if not (self.active & (self._pos_host >= self._reanchor_at)).any():
+            return
+        if self._inflight is not None:
+            self._finished_at_submit.extend(self._collect(self._inflight))
+            self._inflight = None
+        need = self.active & (self._pos_host >= self._reanchor_at)
+        delta = np.where(need, self._pos_host - self._reanchor_target, 0)
+        for s in np.nonzero(need)[0]:
+            self._reanchor(int(s), int(delta[s]))
+        self._pos_host -= delta
+
+    def _reanchor(self, row: int, delta: int) -> None:
+        """Shift one row's positions down by ``delta``: every written
+        column's keys rotated by -delta in float32 (RoPE composes: the
+        scores, which depend on q_pos - k_pos, are unchanged), its kv_pos
+        and its position moved by delta; values untouched.  An int8 row is
+        requantized and then selected, so unwritten columns keep their
+        codes and scales.  In place on the resident state, outside any
+        graph: every capacity's buffers are refilled from it."""
+        ang = (-float(delta)) * self._rope_freqs  # float32, as the JAX package
+        cos, sin = torch.cos(ang)[None], torch.sin(ang)[None]
+        kv_pos = self.state.kv_pos[row]
+        region = kv_pos != csm.PAD_POS  # every written column, the anchor's too
+        sel = region[None, :, None, None]
+        k = self.state.cache.k
+        if isinstance(k, QuantKV):
+            q, scale = k.q[:, row], k.s[:, row]
+            rq = quantize_kv_rows(apply_rope(q.float() * scale, cos, sin))
+            q.copy_(torch.where(sel, rq.q, q))
+            scale.copy_(torch.where(sel, rq.s, scale))
+        else:
+            kr = k[:, row]
+            kr.copy_(torch.where(sel, apply_rope(kr, cos, sin), kr))
+        kv_pos.copy_(torch.where(region, kv_pos - delta, kv_pos))
+        self.slots.pos[row] -= delta
 
     # ---- host-side orchestration ----
 
     def warmup(self, verbose: bool = False) -> float:
         """Run every function before traffic: one admission per prompt
-        bucket that fits, the full batch, and every compaction capacity,
-        then ``reset()``.  On a card this captures every graph.  Returns
-        wall seconds."""
+        bucket that fits, the full batch, every compaction capacity, and an
+        admission from each registered prefix, then ``reset()``.  On a card
+        this captures every graph.  Returns wall seconds."""
         t0 = time.perf_counter()
         K = self.args.audio_num_codebooks
 
-        def dummy(T):
+        def dummy(T, prefix=None):
             tokens = np.zeros((T, K + 1), np.int32)
             mask = np.zeros((T, K + 1), bool)
             mask[:, K] = True
             # with a ramp the budget outlives the ramp step
-            return StreamRequest(tokens, mask, max_frames=3 + (self.ramp_chunk or 0), request_id=-1)
+            return StreamRequest(tokens, mask, max_frames=3 + (self.ramp_chunk or 0),
+                                 request_id=-1, prefix=prefix)
 
-        def serve(n, T):
+        def fits(used):  # the prompt buckets a request can take after ``used`` columns
+            room = (self.window - 2 * self.chunk_size - 2 if self.window is not None
+                    else self.max_seq_len - 3)
+            return [b for b in PROMPT_BUCKETS if used + b <= room]
+
+        def serve(n, T, prefix=None):
             for _ in range(n):
-                self.submit(dummy(T))
+                self.submit(dummy(T, prefix))
             self.step()
             if self.ramp_chunk:
                 self.step()
             self.step()  # a pipelined server reads its chunk here
             self.reset()
 
-        fit = [b for b in PROMPT_BUCKETS if b + 3 <= self.max_seq_len]
+        fit = fits(0)
         for b in fit:
             serve(1, b)
             if verbose:
@@ -498,6 +692,13 @@ class BatchedServer:
             if verbose:
                 print(f"  warmup: capacity {c} ready (+{time.perf_counter() - t0:.1f}s)", flush=True)
             c *= 2
+        for name, pre in self._prefixes.items():
+            sb = fits(pre.bucket)
+            if sb:
+                serve(1, sb[0], prefix=name)
+                if verbose:
+                    print(f"  warmup: prefix {name!r} ready (+{time.perf_counter() - t0:.1f}s)",
+                          flush=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -505,8 +706,6 @@ class BatchedServer:
     def submit(self, req: StreamRequest) -> Optional[int]:
         """Admit a request into a free slot (its prefill runs now); None
         when every slot is taken."""
-        if req.prefix is not None:
-            raise _waits("shared-prefix serving (a request's prefix)", "A.9, the next serving PR")
         if req.adapter is not None:
             raise _waits("multi-LoRA serving (a request's adapter)", "A.10b")
         free = np.nonzero(~self.active)[0]
@@ -514,18 +713,37 @@ class BatchedServer:
             return None
         slot = int(free[0])
         T = req.tokens.shape[0]
-        bucket = bucket_length(T, tuple(b for b in PROMPT_BUCKETS if b <= self.max_seq_len))
-        if bucket + req.max_frames > self.max_seq_len:
+        pre = None
+        if req.prefix is not None:
+            pre = self._prefixes.get(req.prefix)
+            if pre is None:
+                raise ValueError(f"request {req.request_id}: unknown prefix {req.prefix!r} "
+                                 f"(registered: {sorted(self._prefixes)})")
+        pb = pre.bucket if pre is not None else 0
+        said = f"prefix bucket {pb} + " if pb else ""
+        bucket = bucket_length(T, tuple(b for b in PROMPT_BUCKETS if b <= self.cache_len))
+        if self.window is not None:
+            # the prompt is the anchor; decode frames need a ring, and
+            # max_frames is not capped (the ring evicts)
+            if pb + bucket + 2 * self.chunk_size + 2 > self.window:
+                raise ValueError(
+                    f"request {req.request_id}: {said}prompt bucket {bucket} leaves no decode "
+                    f"ring in window {self.window} (need >= {2 * self.chunk_size + 2} ring "
+                    f"columns)")
+        elif pb + bucket + req.max_frames > self.max_seq_len:
             # the device budgets stop decode at max_frames exactly
             raise ValueError(
-                f"request {req.request_id}: prompt bucket {bucket} + max_frames "
+                f"request {req.request_id}: {said}prompt bucket {bucket} + max_frames "
                 f"{req.max_frames} exceeds max_seq_len {self.max_seq_len}")
         K = self.args.audio_num_codebooks
         toks = np.zeros((1, bucket, K + 1), np.int32)
         msk = np.zeros((1, bucket, K + 1), bool)
         toks[0, :T] = req.tokens
         msk[0, :T] = req.mask
-        pf = self._prefill(bucket)
+        pf = self._prefill(bucket, pb)
+        if pre is not None:
+            pf.load_prefix(pre)
+            self._load(pf.p_len, np.array([pre.length], np.int32))
         self._load(pf.tokens, toks)
         self._load(pf.mask, msk)
         self._load(pf.length, np.array([T], np.int32))
@@ -537,6 +755,7 @@ class BatchedServer:
         self.prefill_calls[bucket] = self.prefill_calls.get(bucket, 0) + 1
 
         self.slot_times[slot] = {"admit_s": time.perf_counter()}
+        self._pos_host[slot] = (pre.length if pre is not None else 0) + T
         self._left[slot] = req.max_frames - 1
         self.slot_request[slot] = req
         self.slot_frames[slot] = []
@@ -622,6 +841,7 @@ class BatchedServer:
             if not current(s):
                 continue  # finished, cancelled or re-admitted since dispatch
             r = infl.row_of[s]
+            self._pos_host[s] += int(counts[r])
             for t in range(int(counts[r])):
                 self.slot_frames[s].append(frames[t, r].copy())
             if self.slot_frames[s]:
@@ -636,6 +856,8 @@ class BatchedServer:
         """Advance every active stream by up to one chunk; returns the
         streams that finished.  Pipelined: dispatch chunk N+1, then read
         chunk N."""
+        if self.window is not None:
+            self._maybe_reanchor()
         done, self._finished_at_submit = self._finished_at_submit, []
         if not self.pipelined:
             if not self.active.any():

@@ -1,11 +1,15 @@
-"""``csm-torch-generate`` and ``csm-torch-verify`` on the CPU.
+"""``csm-torch-generate``, ``csm-torch-serve`` and ``csm-torch-verify`` on the CPU.
 
 The parsers and their defaults (the watermark is on unless
 ``--no-watermark``), the ``--tiny-test`` path writing a wav with and
-without the watermark, voice presets, the flags that wait for later slices,
-and the user's path from files: a torchtune ``ckpt.pt``, a Hugging Face
-Mimi ``model.safetensors`` and SilentCipher ``*.ckpt`` files written by the
-tests.  There the port's codes equal the JAX package's at topk=1 (both in
+without the watermark, voice presets, the flags that wait for later slices;
+``csm-torch-serve`` from a request file, with ``--prefix`` (a preset's
+request equals the request with its context inlined) and ``--window``, the
+``--follow`` stdin daemon and the ``--http`` daemon as subprocesses (port 0,
+every wait bounded), the HTTP handler's 503 past its queue and the answer
+to waiting clients when the drive loop dies; and the user's path from
+files: a torchtune ``ckpt.pt``, a Hugging Face Mimi ``model.safetensors``
+and SilentCipher ``*.ckpt`` files written by the tests.  There the port's codes equal the JAX package's at topk=1 (both in
 float32: in bf16 the packages' codes part after a few frames), the port's
 wav equals the JAX CLI's within one 16-bit step, and the verify CLIs give
 the same exit code on the same wav.
@@ -150,13 +154,300 @@ def test_serve_writes_one_wav_per_request(tmp_path, capsys, watermark):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--http", "8080"], "A.9"), (["--follow"], "A.9"), (["--stream"], "A.9 and A.14"),
-    (["--prefix", "voice=v.json"], "A.9"), (["--window", "512"], "A.9"),
-    (["--adapter", "a=dir"], "A.10b"), (["--lora-path", "dir"], "A.10b")])
+    pytest.param(["--stream"], "A.9 and A.14", id="flag2-A.9 and A.14"),
+    pytest.param(["--http", "8080", "--stream"], "A.9 and A.14", id="http-stream"),
+    pytest.param(["--adapter", "a=dir"], "A.10b", id="flag5-A.10b"),
+    pytest.param(["--lora-path", "dir"], "A.10b", id="flag6-A.10b")])
 def test_serve_flags_of_later_slices_raise(tmp_path, flag, item):
     reqs = _requests(tmp_path, [{"id": 0, "text": "hi"}])
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs] + flag)
+
+
+# ---------------------------------------------------------------- prefixes, windows, daemons
+
+
+def _voice(tmp_path):
+    """A one-second context wav and a preset file naming it."""
+    t = np.arange(24_000) / 24_000
+    wav = tmp_path / "ctx.wav"
+    save_wav(str(wav), (0.1 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), 24_000)
+    ctx = [{"audio": str(wav), "text": "hi", "speaker": 1}]
+    preset = tmp_path / "voice.json"
+    preset.write_text(json.dumps({"context": ctx}))
+    return str(preset), ctx
+
+
+def test_serve_prefix_preset(tmp_path, capsys):
+    """--prefix: the preset's context is Mimi-encoded and registered once;
+    a request naming it gives the wav of the same request with the context
+    inlined (topk=1, no watermark); an unknown prefix is skipped."""
+    preset, ctx = _voice(tmp_path)
+    reqs = _requests(tmp_path, [
+        {"id": "p0", "text": "with preset", "max_audio_length_ms": 400, "prefix": "warm"},
+        {"id": "inline", "text": "with preset", "max_audio_length_ms": 400, "context": ctx},
+        {"id": "bad", "text": "x", "max_audio_length_ms": 400, "prefix": "nope"},
+    ])
+    out = tmp_path / "served"
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs, "--output-dir", str(out),
+                        "--prefix", f"warm={preset}", "--n-slots", "2", "--chunk-size", "2",
+                        "--topk", "1", "--no-watermark"]) == 0
+    assert sorted(os.listdir(out)) == ["inline.wav", "p0.wav"]
+    got, sr = load_wav(str(out / "p0.wav"))
+    want, _ = load_wav(str(out / "inline.wav"))
+    assert sr == 24_000 and len(got) == 5 * 1920
+    np.testing.assert_array_equal(got, want)
+    err = capsys.readouterr().err
+    assert "prefix 'warm': 21 frames (bucket 32)" in err and "unknown prefix 'nope'" in err
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs, "--prefix", "warm"]) == 2
+    assert "--prefix must be NAME=FILE.json" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("window", [None, 96])
+def test_serve_window_lifts_the_cap(tmp_path, window):
+    """--window: a request's frames are not capped by max_seq_len (the tiny
+    model's 128 columns leave 64 after its 64-bucket prompt)."""
+    reqs = _requests(tmp_path, [{"id": "long", "text": "a long one", "max_audio_length_ms": 16_000}])
+    out = tmp_path / "out"
+    argv = ["--tiny-test", "--device", "cpu", "--requests", reqs, "--output-dir", str(out),
+            "--chunk-size", "4", "--no-watermark"] + (["--window", str(window)] if window else [])
+    assert tserve.main(argv) == 0
+    audio, _ = load_wav(str(out / "long.wav"))
+    assert len(audio) == (200 if window else 64) * 1920
+
+
+def test_stdin_poller_multi_line_and_partial():
+    """Several lines in one write surface at once, a partial line waits
+    without blocking, an unterminated last line comes at EOF."""
+    r, w = os.pipe()
+    try:
+        p = tserve._StdinPoller(fd=r)
+        os.write(w, b'{"id":"a"}\n{"id":"b"}\n{"id":"c"')
+        assert p.poll() == (['{"id":"a"}', '{"id":"b"}'], False)
+        assert p.poll() == ([], False)
+        os.write(w, b'}\n')
+        assert p.poll() == (['{"id":"c"}'], False)
+        os.write(w, b'{"id":"d"}')
+        os.close(w)
+        w = None
+        assert p.poll() == (['{"id":"d"}'], True)
+    finally:
+        os.close(r)
+        if w is not None:
+            os.close(w)
+
+
+def _serve_proc(*argv, stdin=None):
+    return subprocess.Popen(
+        [sys.executable, "-m", "csm_torch.cli.serve", "--tiny-test", "--device", "cpu",
+         "--no-watermark", "--n-slots", "2", "--chunk-size", "2", *argv],
+        stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO,
+        env=dict(os.environ, CSM_TPU_NO_NATIVE="1"))
+
+
+def test_serve_follow_admits_incrementally(tmp_path):
+    """--follow: lines piped to stdin are admitted as they arrive (a second
+    line with an id in flight is refused), each wav is written when its
+    request finishes, and the daemon exits 0 at EOF once drained."""
+    import time as _time
+
+    out = tmp_path / "followed"
+    proc = _serve_proc("--requests", "-", "--follow", "--output-dir", str(out), stdin=subprocess.PIPE)
+    try:
+        proc.stdin.write(json.dumps({"id": "fa", "text": "first", "max_audio_length_ms": 400}) + "\n"
+                         + json.dumps({"id": "fa", "text": "the same id"}) + "\n"
+                         + json.dumps({"cancel": "nobody"}) + "\n")
+        proc.stdin.flush()
+        _time.sleep(1.0)
+        proc.stdin.write(json.dumps({"id": "fb", "text": "later", "max_audio_length_ms": 320}) + "\n")
+        stdout = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, stdout
+    for rid, frames in (("fa", 5), ("fb", 4)):
+        audio, sr = load_wav(str(out / f"{rid}.wav"))
+        assert sr == 24_000 and len(audio) == frames * 1920
+    assert "duplicate in-flight id 'fa' rejected" in stdout, stdout
+    assert "cancel 'nobody': not in flight" in stdout, stdout
+    assert "Served 2 requests" in stdout, stdout
+
+
+def _port_of(proc, timeout=300):
+    """The port a daemon's "Serving on" line names (it binds port 0)."""
+    import re
+    import threading
+
+    found = {}
+
+    def read():
+        for line in proc.stdout:
+            m = re.search(r"Serving on http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                found["port"] = int(m.group(1))
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert "port" in found, "the daemon never said where it serves"
+    return found["port"]
+
+
+def test_serve_http_endpoint(tmp_path):
+    """--http: concurrent POST /generate requests, one of them naming a
+    prefix registered at startup, each answered with a wav; a malformed one
+    answers 400 and the daemon stays up; GET /health and /metrics report;
+    POST /prefixes drops a preset; POST /shutdown drains and exits 0."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    import wave
+
+    preset, _ = _voice(tmp_path)
+    proc = _serve_proc("--http", "127.0.0.1:0", "--warmup", "--prefix", f"warm={preset}")
+    try:
+        base = f"http://127.0.0.1:{_port_of(proc)}"
+        results = {}
+
+        def post(name, body):
+            req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[name] = (r.status, r.headers["Content-Type"], int(r.headers["X-Frames"]),
+                                 r.read())
+
+        bodies = {"a": {"text": "request a", "max_audio_length_ms": 400},
+                  "b": {"text": "request b", "max_audio_length_ms": 320, "prefix": "warm"},
+                  "c": {"text": "request c", "max_audio_length_ms": 240}}
+        threads = [threading.Thread(target=post, args=kv) for kv in bodies.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert set(results) == set(bodies)
+        for name, frames in (("a", 5), ("b", 4), ("c", 3)):
+            status, ctype, n, wav = results[name]
+            assert (status, ctype, n) == (200, "audio/wav", frames)
+            with wave.open(io.BytesIO(wav)) as w:
+                assert w.getframerate() == 24_000 and w.getnframes() == frames * 1920
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(base + "/generate", data=b'{"no_text": 1}'),
+                                   timeout=60)
+        assert e.value.code == 400
+        health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+        assert health["status"] == "ok" and health["served"] == 3 and health["prefixes"] == ["warm"]
+        metrics = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+        assert "csm_serve_requests_total 3" in metrics and "csm_serve_frames_total 12" in metrics
+        dropped = urllib.request.urlopen(urllib.request.Request(
+            base + "/prefixes", data=json.dumps({"name": "warm", "unload": True}).encode()), timeout=60)
+        assert json.loads(dropped.read())["status"] == "unloaded"
+        assert json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())["prefixes"] == []
+        urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
+        stdout = proc.communicate(timeout=120)[0]
+        assert proc.returncode == 0, stdout
+        assert "HTTP served 3 requests" in stdout, stdout
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+class _FakeServer:
+    n_slots = 2
+    active = np.zeros(2, bool)
+    _prefixes = {}
+
+
+def _drive(handler, method, path, body=b""):
+    import io
+
+    h = handler.__new__(handler)
+    h.path, h.request_version = path, "HTTP/1.1"
+    h.requestline = f"{method} {path} HTTP/1.1"
+    h.client_address = ("127.0.0.1", 0)
+    h.headers = {"Content-Length": str(len(body))}
+    h.rfile, h.wfile = io.BytesIO(body), io.BytesIO()
+    getattr(h, f"do_{method}")()
+    return h.wfile.getvalue().decode("latin-1")
+
+
+def test_http_handler_overload_503():
+    """A full admission queue (--http-queue) answers 503 at once; /health,
+    /metrics and errors keep answering; a freed place admits again."""
+    import queue
+    import threading
+
+    inbox = queue.Queue(maxsize=1)
+    inbox.put_nowait(("occupied", None, None))
+    H = tserve._make_http_handler(_FakeServer(), inbox, threading.Event(), {"served": 0, "frames": 0})
+    out = _drive(H, "POST", "/generate", b'{"text": "hi"}')
+    assert " 503 " in out.splitlines()[0] and "overloaded" in out
+    assert " 200 " in _drive(H, "GET", "/health").splitlines()[0]
+    metrics = _drive(H, "GET", "/metrics")
+    assert "csm_serve_slots 2" in metrics and "csm_serve_queue_depth 1" in metrics
+    assert " 404 " in _drive(H, "POST", "/nope").splitlines()[0]
+    assert " 400 " in _drive(H, "POST", "/generate", b"not json").splitlines()[0]
+    inbox.get_nowait()
+
+    def fulfil():
+        _, done, holder = inbox.get(timeout=10)
+        holder.update(wav=b"RIFFfake", frames=1)
+        done.set()
+
+    t = threading.Thread(target=fulfil)
+    t.start()
+    out = _drive(H, "POST", "/generate", b'{"text": "hi"}')
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert " 200 " in out.splitlines()[0] and out.endswith("RIFFfake")
+
+
+def test_http_drive_loop_death_answers_waiters():
+    """If the drive loop dies (here: the server's step raises), the client
+    waiting on its request is answered with an error and the exception
+    reaches the caller."""
+    import socket
+    import threading
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    class Dying(_FakeServer):
+        active = np.zeros(2, bool)
+
+        def submit(self, sr):
+            self.active[0] = True
+            return 0
+
+        def step(self):
+            raise RuntimeError("the card fell over")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    answer = {}
+
+    def client():
+        for _ in range(200):
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{port}/generate", data=b'{"text": "hi"}'), timeout=30)
+            except urllib.error.HTTPError as e:
+                answer["code"], answer["body"] = e.code, e.read().decode()
+                return
+            except OSError:
+                _time.sleep(0.05)
+
+    class Req:
+        request_id = 0
+
+    t = threading.Thread(target=client)
+    t.start()
+    with pytest.raises(RuntimeError, match="fell over"):
+        tserve._serve_http(f"127.0.0.1:{port}", 4, Dying(), lambda i, r: Req(), None, None)
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert answer["code"] == 400 and "server loop terminated" in answer["body"]
 
 
 # ---------------------------------------------------------------- from files

@@ -769,6 +769,85 @@ def test_server_compaction_round_trip(cuda):
         np.testing.assert_array_equal(codes[8][rid], codes[2][rid])
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_windowed_server_graphs_match_eager(cuda, kv_dtype):
+    """A 96-column window with a 30-position re-anchor headroom, through
+    graphs captured on first use (mid-traffic: no warmup) against the same
+    server without them, topk=50 on one seed: equal codes for three
+    streams of 140-160 frames that wrap their rings and re-anchor.  (A
+    capture's eager warm-up pass adds its launches to the counts, so they
+    are not compared.)"""
+    from csm_torch.models import generation as tgen
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "bf16", 64)
+    specs = [(20, 0, 160), (12, 1, 150), (30, 2, 140)]
+    got = {}
+    for graphs in (True, False):
+        server = BatchedServer(params, args, n_slots=4, max_seq_len=128, temperature=0.9, topk=50,
+                               chunk_size=4, compute_dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                               window=96, reanchor_headroom=30, device=cuda)
+        server.graphs = graphs
+        rows = []
+        real = server._reanchor
+        server._reanchor = lambda row, delta: rows.append(row) or real(row, delta)
+        server.reset(seed=5)
+        before = tgen._counts()
+        results, _ = server.run(_serving_requests(args, specs))
+        torch.cuda.synchronize()
+        got[graphs] = ({r.request_id: r.frames for r in results},
+                       [a - b for a, b in zip(tgen._counts(), before)], sorted(set(rows)))
+        if graphs:
+            assert all(d.graph is not None for d in server._decodes.values())
+        server.close()
+    (codes_g, counts_g, rows_g), (codes_e, counts_e, rows_e) = got[True], got[False]
+    assert rows_g == rows_e == [0, 1, 2]
+    for rid in codes_e:
+        assert len(codes_g[rid]) == specs[rid][2]
+        np.testing.assert_array_equal(codes_g[rid], codes_e[rid])
+    assert counts_g[0] > 0 and counts_e[0] > 0  # the decode kernel ran in both
+
+
+def test_prefix_server_graphs_match_eager(cuda):
+    """Prefixes of buckets 32 and 256 (its registration runs the flash
+    kernel at S = T = 256), requests naming them with suffixes of buckets
+    64 and 256 (flash after the prefix) beside a plain one, through the
+    registration and admission graphs (captured on first use) against the
+    same server without them, topk=50 on one seed: equal codes, and the
+    flash kernel launched in both."""
+    from csm_torch.models import generation as tgen
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "bf16", 256)
+    ctx = {name: _serving_requests(args, [(T, 0, 1)], seed=T)[0] for name, T in (("a", 20), ("b", 200))}
+    got = {}
+    for graphs in (True, False):
+        server = BatchedServer(params, args, n_slots=4, max_seq_len=768, temperature=0.9, topk=50,
+                               chunk_size=4, compute_dtype=torch.bfloat16, device=cuda)
+        server.graphs = graphs
+        before = tgen._counts()
+        for name, r in ctx.items():
+            server.register_prefix(name, r.tokens, r.mask)
+        server.reset(seed=9)
+        reqs = _serving_requests(args, [(10, 0, 12), (220, 1, 9), (15, 2, 10), (30, 3, 8)])
+        for r, prefix in zip(reqs, ("a", "b", "b", None)):
+            r.prefix = prefix
+        results, _ = server.run(reqs)
+        torch.cuda.synchronize()
+        got[graphs] = ({r.request_id: r.frames for r in results},
+                       [a - b for a, b in zip(tgen._counts(), before)])
+        if graphs:
+            assert set(server._prefix_prefills) == {(32, 64), (256, 256), (256, 64)}
+            assert all(p.graph is not None for p in server._prefix_prefills.values())
+        server.close()
+    (codes_g, counts_g), (codes_e, counts_e) = got[True], got[False]
+    assert set(codes_g) == set(range(4))
+    for rid in codes_e:
+        np.testing.assert_array_equal(codes_g[rid], codes_e[rid])
+    # flash: the registration of "b" (S = 256) and request 1's 256-bucket suffix
+    assert counts_e[1] == 2 * args.backbone.num_layers and counts_g[1] > 0
+
+
 # ---------------------------------------------------------------- watermark, loaders
 
 

@@ -4,8 +4,9 @@ package's ``BatchedServer``.
 Both run ``tiny_test_args()`` in float32 on the same weights (the JAX
 random init bridged with ``params_from_jax``) and the same requests; at
 topk=1 every stream's frames must be exactly equal.  These are the port's
-counterparts of tests/test_serving.py (all but meshes, adapters, prefixes
-and windows, which wait for later slices and raise): the server against
+counterparts of tests/test_serving.py (all but meshes and adapters, which
+wait for later slices and raise; prefixes and windows have files of their
+own, test_torch_prefix_cache.py and test_torch_sliding_window.py): the server against
 single-stream generation, continuous admission and slot reuse, budget
 validation, chunked decode, quantized weights and the ``auto`` policy, the
 int8 KV cache, streams finished at submit, streaming callbacks, the
@@ -425,23 +426,20 @@ def test_pipelined_ramp_keeps_first_read():
 # ---------------------------------------------------------------- surfaces that wait
 
 
-@pytest.mark.parametrize("what", ["mesh", "adapters", "window", "register_prefix", "add_adapter",
-                                  "request_prefix", "request_adapter"])
+@pytest.mark.parametrize("what", ["mesh", "adapters", "add_adapter", "request_adapter"])
 def test_unported_surfaces_raise(what):
-    if what in ("mesh", "adapters", "window"):
+    if what in ("mesh", "adapters"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port_server(n_slots=1, max_seq_len=96, **{what: {"mesh": object(), "adapters": {"a": "p"},
-                                                             "window": 64}[what]})
+            port_server(n_slots=1, max_seq_len=96, **{what: {"mesh": object(),
+                                                             "adapters": {"a": "p"}}[what]})
         return
     server = port_server(n_slots=1, max_seq_len=96)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "register_prefix":
-            server.register_prefix("voice", *_prompt(6, 0))
-        elif what == "add_adapter":
+        if what == "add_adapter":
             server.add_adapter("a", "path")
         else:
             r = make_request(6, 0, 1)
-            setattr(r, what.split("_")[1], "x")
+            r.adapter = "x"
             server.submit(r)
     assert not server.active.any()
 
