@@ -24,16 +24,20 @@ is wrong:
      re-anchor, a dead row); the flash forward after a prefix (a 300-frame
      prefix in its 512 bucket, a 256-frame suffix from position 300 in a
      2048-column row); the matvec at the CSM-1B backbone's four
-     projections), and timed beside that plain version, one
-     PyTorch library call computing the same function, and its bound (for
-     decode, from the live keys only);
+     projections; decode's int8 form over an int8-KV cache at T=89, at
+     serving's 8 and 64 slots and over the full ring, its library figure
+     ``dequantize_kv`` + SDPA, two calls), and timed beside that plain
+     version, one PyTorch library call computing the same function, and its
+     bound (for decode, from the live keys only);
   4. the main path runs at CSM-1B width on random weights: Generator.generate
      (prompt bucket 64), generate (bucket 256: prefill through the flash
      kernel) and generate_batch of two prompts, with the kernels' launch
      counts held to what the path must launch; then the quantized path:
      int4 weights at CSM-1B width (generate and generate_batch, int4 kernel
      launches counted) and at 8B width (peak device memory recorded), and
-     short runs of int8, int8-decoder and the int8 KV cache.  The Generator
+     short runs of int8, int8-decoder and the int8 KV cache (decode's int8
+     form on every backbone step; its peak memory and frames/s beside a
+     bf16 cache on the same weights, in turns).  The Generator
      runs through its CUDA graphs (the prefill frame and the frame step,
      replayed), and the launch counts hold under replay; beside each main
      run (generate_short, generate_long, generate_batch, int4_generate_short,
@@ -89,6 +93,17 @@ is wrong:
      127.0.0.1:0 --warmup --prefix`` and ``--follow`` as subprocesses: 8
      concurrent POST /generate (4 naming the preset), /health, /shutdown
      (exit 0), and JSONL over a pipe (8 wavs, exit 0 at EOF);
+  4e. audio streaming at CSM-1B width: ``Generator.generate_streaming``
+     against ``generate`` at topk=1 in float32 (TF32 off: samples within
+     1e-4 of the largest up to any tie, and equal to the whole-clip decode
+     of the stream's own codes); ``csm-torch-serve --http --stream`` as a
+     subprocess answering 8 concurrent POSTs with PCM (first and last byte
+     times); ``generate_streaming`` at chunk_frames 2, 6 and 13 over a bf16
+     and an int8 KV cache (first audio, chunk arrivals, chunks late for
+     playback, launches held); ``MimiStreamDecoder`` ms at 1, 2, 8 and 13
+     frames; ``--stream`` serving (a streaming Mimi decoder a request on
+     the serving thread) at 8 and 64 slots beside the same server without
+     it (frames/s, first audio per stream);
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -315,6 +330,17 @@ def decode_bound(q, k, mask):
     return bound_ms(moved, 4.0 * Hq * D * live)
 
 
+def decode_int8_bound(q, kq, mask):
+    """The int8 form's bound from the live keys only: q read and out
+    written once in q's type, each live key's int8 K and V rows and their
+    float32 scales once, the mask once."""
+    B, _, Hq, D = q.shape
+    T, Hkv = kq.shape[1], kq.shape[2]
+    live = int(mask.expand(B, 1, T).sum())
+    moved = 2 * (2 * B * Hq * D) + 2 * live * Hkv * (D + 4) + mask.numel()
+    return bound_ms(moved, 4.0 * Hq * D * live)
+
+
 def dropped_key_tile(mask):
     """The mask with one live key tile of every row masked: the middle
     whole 64 of the row's live keys (in column order: a ring's are not a
@@ -341,11 +367,18 @@ def flash_bound(q, k, q_pos, kv_pos):
 
 
 def sdpa_decode(q, k, v, mask):
+    """SDPA over the decode inputs in its (B, H, T, D) layout, set up once;
+    the callable carries that q and mask (``.q``, ``.mask``)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     m = mask[:, None]  # (B|1, 1, 1, T)
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True)
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True)
+
+    call.q, call.mask = qt, m
+    return call
 
 
 def sdpa_flash(q, k, v, q_pos, kv_pos):
@@ -595,6 +628,9 @@ DECODE_SHAPES = [
     # the 8B backbone (D=128) served at 8 slots
     dict(B=8, Hq=32, Hkv=8, D=128, T=1024, live=serving_live(8, 1024, seed=10)),
 ]
+# the int8 form (an int8-KV backbone cache): generation at T=89, serving at
+# 8 and 64 slots over ragged live keys, and the 8-row full ring (RING)
+DECODE_INT8_SHAPES = [DECODE_SHAPES[0], DECODE_SHAPES[12], DECODE_SHAPES[13]]
 # the backbone row a frame's decode time is weighted from: T=89 as in
 # generate_short, and a default generate's 1189 slots with 89 live
 DECODE_FRAME_ROWS = {"T89": dict(B=1, Hq=32, Hkv=8, D=64, T=89),
@@ -654,6 +690,49 @@ def phase_kernels(dev, flush, details):
         decode_row(shape, *decode_case(**shape, gen=gen, dev=dev))
     decode_row(dict(RING, ring=True), *ring_case(**RING, gen=gen, dev=dev))
 
+    def decode_int8_row(shape, q, k, v, mask):
+        """The int8 form over the same inputs quantized as an int8-KV cache
+        writes them (``quantize_kv_rows``), against its plain version."""
+        from csm_torch.ops.kvcache import dequantize_kv, quantize_kv_rows
+
+        kq, vq = quantize_kv_rows(k), quantize_kv_rows(v)
+        got = dec.decode_gqa_attention(q, kq, vq, mask)
+        torch.cuda.synchronize()
+        want = dec.decode_attention_int8_plain(q, kq.q, kq.s, vq.q, vq.s, mask)
+        err = check_close(f"decode int8 {shape}", got, want, BF16_ATOL, BF16_RTOL)
+        dead = ~mask.expand(q.shape[0], 1, mask.shape[-1])[:, 0].any(-1)
+        if got[dead].any():
+            raise AssertionError("int8: a fully masked row must give zeros")
+        drop = dec.decode_attention_int8_plain(q, kq.q, kq.s, vq.q, vq.s,
+                                               dropped_key_tile(mask)).float()
+        moved = ((drop - want.float()).abs() / (BF16_ATOL + BF16_RTOL * want.float().abs())).max().item()
+        if not moved > 10:
+            raise AssertionError(f"decode int8 {shape}: masking one live key tile moves the "
+                                 f"plain output only {moved:.1f}x the tolerance")
+        b_ms, b_by = decode_int8_bound(q, kq.q, mask)
+        sdpa = sdpa_decode(q, k, v, mask)  # the transposes' layout, set up once
+
+        def library():  # two calls: dequantize_kv, then SDPA
+            kd, vd = dequantize_kv(kq, q.dtype), dequantize_kv(vq, q.dtype)
+            return torch.nn.functional.scaled_dot_product_attention(
+                sdpa.q, kd.transpose(1, 2), vd.transpose(1, 2), attn_mask=sdpa.mask,
+                enable_gqa=True)
+
+        rows.append(dict(kernel="decode_attention_int8", shape=shape, max_abs_err=err,
+                         drop_one_tile=moved,
+                         ms=timed_ms(lambda: dec.decode_gqa_attention(q, kq, vq, mask), flush),
+                         plain_ms=timed_ms(lambda: dec.decode_attention_int8_plain(
+                             q, kq.q, kq.s, vq.q, vq.s, mask), flush),
+                         library_ms=timed_ms(library, flush),
+                         library="dequantize_kv + scaled_dot_product_attention (two calls)",
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"decode int8 {shape}: max |kernel - plain| {err:.3e}; masking one live key tile "
+            f"moves the plain output {moved:.0f}x the tolerance")
+
+    for shape in DECODE_INT8_SHAPES:
+        decode_int8_row(shape, *decode_case(**shape, gen=gen, dev=dev))
+    decode_int8_row(dict(RING, ring=True), *ring_case(**RING, gen=gen, dev=dev))
+
     def flash_row(shape, q, k, v, q_pos, kv_pos):
         o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
         torch.cuda.synchronize()
@@ -711,6 +790,11 @@ def phase_kernels(dev, flush, details):
                "csm_tpu/ops/decode_attention.py:55", DECODE_SHAPES[0],
                bound_count="live keys only", launch_floor_ms=floor_ms,
                **{f"frame_ms_{name}": ms for name, (_, ms) in dec_frame.items()}),
+        record("decode_attention_int8", "csm_torch/csrc/decode_attention.cu",
+               "csm_tpu/ops/decode_attention.py:55", DECODE_SHAPES[0],
+               bound_count="live keys only: int8 codes and float32 scales",
+               library="dequantize_kv + scaled_dot_product_attention (two calls)",
+               launch_floor_ms=floor_ms),
         record("flash_attention_fwd", "csm_torch/csrc/flash_attention.cu",
                "csm_tpu/ops/flash_attention.py:117",
                dict(B=1, S=256, T=281, Hq=32, Hkv=8, D=64)),
@@ -1098,11 +1182,13 @@ def int4_expected(args, st, B):
 
 
 def decode_expected(args, st, kv_int8=False):
-    """Decode-kernel launches of one generate: the decoder's S=1 steps, and
-    the backbone's unless its cache is int8 (those take plain attention over
-    the dequantized cache)."""
+    """Decode-kernel launches of one generate, (float form, int8 form): the
+    decoder's S=1 steps on the float form, the backbone's steps on the int8
+    form when its cache is int8, else on the float form."""
     K, L_bb, L_dec = args.audio_num_codebooks, args.backbone.num_layers, args.decoder.num_layers
-    return (K - 2) * L_dec * (st["steps"] + 1) + (0 if kv_int8 else L_bb * st["steps"])
+    backbone = L_bb * st["steps"]
+    decoder = (K - 2) * L_dec * (st["steps"] + 1)
+    return (decoder, backbone) if kv_int8 else (decoder + backbone, 0)
 
 
 def check_audio(name, outs, st):
@@ -1133,7 +1219,7 @@ def reset_counts():
     from csm_torch.ops import int4_matmul as i4
     from csm_torch.ops import matvec as mv
 
-    dec.launches = fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    dec.launches = dec.int8_launches = fa.launches = fa.dq_launches = fa.dkv_launches = 0
     i4.launches = i4.dequant_calls = mv.launches = 0
 
 
@@ -1143,7 +1229,8 @@ def read_counts():
     from csm_torch.ops import int4_matmul as i4
     from csm_torch.ops import matvec as mv
 
-    return {"decode_attention": dec.launches, "flash_attention_fwd": fa.launches,
+    return {"decode_attention": dec.launches, "decode_attention_int8": dec.int8_launches,
+            "flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches, "flash_attention_bwd_dkv": fa.dkv_launches,
             "int4_matmul": i4.launches, "int4_dequant_route": i4.dequant_calls,
             "matvec": mv.launches}
@@ -1170,7 +1257,9 @@ def drive(name, gen, calls, args, details, needs, kv_int8=False):
         outs = call()
         st = dict(gen.last_stats)
         for s in [st] + ([dict(st, steps=1)] if st["capture_s"] else []):
-            want["decode_attention"] += decode_expected(args, s, kv_int8)
+            fl, i8 = decode_expected(args, s, kv_int8)
+            want["decode_attention"] += fl
+            want["decode_attention_int8"] += i8
             want["flash_attention_fwd"] += (
                 args.backbone.num_layers if s["prompt_bucket"] >= FLASH_MIN_SEQ else 0)
             if int4:
@@ -1355,7 +1444,7 @@ def phase_files(details):
         st = dict(gen.last_stats)
         want = dict.fromkeys(got, 0)
         for s in [st] + ([dict(st, steps=1)] if st["capture_s"] else []):
-            want["decode_attention"] += decode_expected(args, s)
+            want["decode_attention"] += decode_expected(args, s)[0]
         if got != want:
             raise AssertionError(f"csm-torch-generate: launches {got}, the path needs {want}")
         audio, sr = load_wav(wav)
@@ -1549,19 +1638,73 @@ def phase_quantized(details):
         f"{details['int4_8b_peak_reserved_gib']:.2f} reserved")
     free(gen)
 
-    for mode, kw in (("int8", dict(quantize="int8")), ("int8_decoder", dict(quantize="int8-decoder")),
-                     ("kv_int8", dict(kv_int8=True))):
+    for mode, kw in (("int8", dict(quantize="int8")), ("int8_decoder", dict(quantize="int8-decoder"))):
         gen = load_csm(args=args, text_tokenizer=tok, **kw)
         run = (f"{mode}_generate",
                lambda: [gen.generate("A short quantized line.", max_audio_length_ms=800)], 1)
-        if mode == "kv_int8":  # its graphs hold each layer's dequantized cache in their pool
-            compare_loops(mode, gen, [run], details)
-        else:
-            run[1]()  # captures the key
-        drive(mode, gen, [run], args, details, ("decode_attention",),
-              kv_int8=kw.get("kv_int8", False))
+        run[1]()  # captures the key
+        drive(mode, gen, [run], args, details, ("decode_attention",))
         free(gen)
-    return int4_launches
+    del gen, run  # the last one's codec too, before the next measures memory
+    return {"int4_matmul": int4_launches,
+            "decode_attention_int8": kv_int8_vs_bf16(args, tok, details)["decode_attention_int8"]}
+
+
+def kv_int8_vs_bf16(args, tok, details):
+    """The int8 KV cache beside the bf16 one on the same weights, in one
+    call: ``generate_short`` (bucket 64, 25 frames) through the graphs.
+    Each cache's peak allocated and reserved memory over its first call
+    (its capture included), both generators' graphs dropped before it, with
+    what the card held before the weights loaded; then frames/s in turns
+    (bf16, int8, int8, bf16); the int8 graph against the eager loop
+    (codes equal at topk 50); then the int8 run's launch-count window: the
+    decode kernel's int8 form on every backbone step, the float form on the
+    decoder's.  Returns the window's counts."""
+    import gc
+
+    import torch
+
+    from csm_torch import load_csm
+    from csm_torch.generator import Generator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    gen8 = load_csm(args=args, text_tokenizer=tok, kv_int8=True)
+    gen16 = Generator(gen8.params, args, mimi=gen8.mimi, text_tokenizer=tok, device="cuda")
+    gens = {"bf16": gen16, "int8": gen8}
+    rec = {name: {"frames_per_s": [], "allocated_before_load_gib": before_gib} for name in gens}
+    for name, g in gens.items():
+        for other in gens.values():
+            other.graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g.generate(SHORT_TEXT, max_audio_length_ms=2000)
+        torch.cuda.synchronize()
+        rec[name].update(peak_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+                         first_call_prefill_s=g.last_stats["capture_s"] + g.last_stats["prefill_s"])
+    for g in gens.values():  # the memory pass dropped the other's graphs: capture again
+        g.generate(SHORT_TEXT, max_audio_length_ms=2000)
+    for name in ("bf16", "int8", "int8", "bf16"):
+        gens[name].generate(SHORT_TEXT, max_audio_length_ms=2000)
+        rec[name]["frames_per_s"].append(gens[name].last_stats["frames_per_s"])
+    details["kv_int8_vs_bf16"] = rec
+    for name, r in rec.items():
+        log(f"generate_short, {name} KV cache, on {details['card']}: peak "
+            f"{r['peak_allocated_gib']:.4f} GiB allocated ({before_gib:.4f} held before the "
+            f"weights loaded), {r['peak_reserved_gib']:.4f} reserved "
+            f"(first call, capture included: prefill {1e3 * r['first_call_prefill_s']:.1f} ms); "
+            f"frames/s " + " ".join(f"{x:.2f}" for x in r["frames_per_s"]))
+    run = ("kv_int8_generate", lambda: [gen8.generate("A short quantized line.",
+                                                      max_audio_length_ms=800)], 1)
+    compare_loops("kv_int8", gen8, [run], details)
+    got = drive("kv_int8", gen8, [run], args, details,
+                ("decode_attention", "decode_attention_int8"), kv_int8=True)
+    free(gen16)
+    free(gen8)
+    return got
 
 
 # ---------------------------------------------------------------- phase 4c
@@ -1594,8 +1737,8 @@ def serve_requests(args, n, T=SERVE_T, max_frames=SERVE_FRAMES, seed=0):
 def serving_expected(args, steps, prefills, kv_int8, int4):
     """Launches a server's run must make: ``steps`` S=1 steps by capacity
     c, ``prefills`` by bucket.  A step launches the decode kernel once a
-    backbone layer (not over an int8 cache: plain attention over its
-    dequantized copy) and once a decoder layer in each of the decoder's
+    backbone layer (its int8 form over an int8 cache) and once a decoder
+    layer in each of the decoder's
     K-2 S=1 calls; a prefill launches the decoder's, and the flash kernel
     once a backbone layer at buckets of FLASH_MIN_SEQ and more.  int4
     weights: each call's four projections a layer go through the kernel at
@@ -1614,6 +1757,7 @@ def serving_expected(args, steps, prefills, kv_int8, int4):
 
     for c, n in steps.items():
         want["decode_attention"] += n * ((0 if kv_int8 else L_bb) + (K - 2) * L_dec)
+        want["decode_attention_int8"] += n * (L_bb if kv_int8 else 0)
         proj(c, n * 4 * L_bb)
         proj(2 * c, n * 4 * L_dec)
         proj(c, n * 4 * L_dec * (K - 2))
@@ -2080,7 +2224,8 @@ def phase_serving(details):
     profile_serving("bf16_64", server, args, details)
     server.close()
     del server
-    config("kv_int8_8", params, args, 8, kv_dtype="int8")
+    config("kv_int8_8", params, args, 8, kv_dtype="int8",
+           needs=("decode_attention", "decode_attention_int8"))
     config("int4_8", params, args, 8, weight_dtype="int4", needs=("decode_attention", "int4_matmul"))
     del params
 
@@ -2589,12 +2734,360 @@ def phase_prefix_window(details):
     return total
 
 
+# ---------------------------------------------------------------- phase 4e
+
+
+# generate_streaming's chunk sizes (frames), the streams' budget (50 frames),
+# and the codec step's chunk lengths that are timed
+STREAM_CHUNK_FRAMES = (2, 6, 13)
+STREAM_MS = 4000
+CODEC_TC = (1, 2, 8, 13)
+# streamed against whole-clip audio in float32 (TF32 off): the codec's float
+# sums in other orders, the CPU tests' 1e-4 of the largest magnitude
+STREAM_AUDIO_SHARE = 1e-4
+
+
+def stream_once(gen, chunk_frames, args, kv_int8, hold=True, topk=50, text=SHORT_TEXT,
+                ms=STREAM_MS):
+    """One ``generate_streaming`` call in a launch-count window: the host
+    time of each chunk's arrival from the call (the first is first audio:
+    prompt, submit, prefill, the first chunk's steps and one codec step),
+    whether each chunk arrives before the audio before it has played (from
+    the first arrival on), and (``hold``) the launches held to what the
+    one-slot server's steps and prefills must launch (the codec launches
+    none of the port's kernels; a call that captures a graph also ran its
+    eager warm-up pass, so the first call on a key is not held).  Returns
+    (record, chunks)."""
+    import numpy as np
+
+    server = gen._streaming_server(chunk_frames, topk, None)
+    steps0, pre0 = dict(server.step_calls), dict(server.prefill_calls)
+    reset_counts()  # the window opens
+    t0 = time.perf_counter()
+    chunks, arrivals = [], []
+    for chunk, _ in gen.generate_streaming(text, max_audio_length_ms=ms, topk=topk,
+                                           chunk_frames=chunk_frames):
+        arrivals.append(time.perf_counter() - t0)
+        chunks.append(chunk)
+    wall = time.perf_counter() - t0
+    got = read_counts()  # the window closes
+    steps = {c: n - steps0.get(c, 0) for c, n in server.step_calls.items()}
+    pre = {b: n - pre0.get(b, 0) for b, n in server.prefill_calls.items()}
+    want = serving_expected(args, steps, pre, kv_int8, int4=False)
+    needs = ("decode_attention", "decode_attention_int8") if kv_int8 else ("decode_attention",)
+    if hold and (got != want or not all(got[k] for k in needs)):
+        raise AssertionError(f"stream chunk {chunk_frames}: launches {got}, the steps {steps} and "
+                             f"prefills {pre} need {want}")
+    for c in chunks:
+        if c.dtype != np.float32 or c.ndim != 1 or len(c) % 1920 or not np.isfinite(c).all():
+            raise AssertionError(f"stream chunk {chunk_frames}: a chunk of {c.shape} {c.dtype}")
+    played, late = 0.0, []
+    for i in range(1, len(chunks)):
+        played += len(chunks[i - 1]) / 24_000
+        if len(chunks[i]) and arrivals[i] > arrivals[0] + played:
+            late.append(i)
+    frames = sum(len(c) for c in chunks) // 1920
+    if not 0 < frames <= ms // 80:
+        raise AssertionError(f"stream chunk {chunk_frames}: {frames} frames")
+    return {"first_audio_s": arrivals[0], "arrivals_s": arrivals, "frames": frames,
+            "chunk_frames_out": [len(c) // 1920 for c in chunks], "wall_s": wall,
+            "late_chunks": late, "launches": got}, chunks
+
+
+def codec_step_ms(gen, details):
+    """``MimiStreamDecoder`` at Tc = 1, 2, 8 and 13 frames: the host ms of
+    ``decode_chunk`` (its samples on the host, the work ends in the copy),
+    and CUDA events around ``decode_chunk_async`` (the device's span,
+    launch gaps included); medians of 10 after 3 warm-up calls, beside the
+    chunk's audio."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    dec = gen.mimi.stream_decoder()
+    rec = {}
+    for tc in CODEC_TC:
+        codes = rng.integers(0, 2048, (gen.args.audio_num_codebooks, tc))
+        for _ in range(3):
+            dec.decode_chunk(codes)
+        host, span = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dec.decode_chunk(codes)
+            host.append(1e3 * (time.perf_counter() - t))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dec.decode_chunk_async(codes)
+            end.record()
+            torch.cuda.synchronize()
+            span.append(start.elapsed_time(end))
+        rec[tc] = {"host_ms": statistics.median(host), "event_ms": statistics.median(span),
+                   "audio_ms": 80.0 * tc}
+        log(f"codec step, {tc} frames ({80 * tc} ms of audio) on {details['card']}: decode_chunk "
+            f"{rec[tc]['host_ms']:.3f} ms on the host, {rec[tc]['event_ms']:.3f} ms between events")
+    return rec
+
+
+def stream_vs_generate(details):
+    """At topk=1 in float32 (TF32 off), CSM-1B width: the streamed chunks
+    (chunk_frames 6) against ``generate``'s waveform.  Mimi is causal, so up
+    to the first frame whose codes differ (two runs of other decode splits
+    may part on a tie of logits) the samples must agree to
+    STREAM_AUDIO_SHARE of the largest; the paths must agree on at least
+    the first half of the frames; and the stream's samples equal the
+    whole-clip decode of its own codes over every frame."""
+    import numpy as np
+    import torch
+
+    from csm_torch import csm_1b_args, load_csm
+    from csm_torch.data.tokenizers import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = load_csm(args=csm_1b_args(), compute_dtype=torch.float32, text_tokenizer=ByteTokenizer())
+    rec = gen.mimi = Recording(gen.mimi)
+    kw = dict(max_audio_length_ms=2000, topk=1)
+    full = gen.generate(SHORT_TEXT, **kw)
+    codes = rec.decoded[-1]
+    chunks = [c for c, _ in gen.generate_streaming(SHORT_TEXT, chunk_frames=6, **kw)]
+    audio = np.concatenate(chunks)
+    n = len(audio) // 1920
+    streamed = np.concatenate(rec.streamed, axis=1)[:, :n]
+    gen.mimi = rec.inner
+    own = gen.mimi.decode(streamed)
+    scale = float(np.abs(own).max())
+    own_err = float(np.abs(audio - own).max()) / scale
+    if audio.shape != own.shape or not own_err <= STREAM_AUDIO_SHARE:
+        raise AssertionError(f"stream: its samples against the whole-clip decode of its codes: "
+                             f"{own_err:.3e} of the largest")
+    same = 0
+    while same < min(n, codes.shape[1]) and (streamed[:, same] == codes[:, same]).all():
+        same += 1
+    if same < codes.shape[1] // 2:
+        raise AssertionError(f"stream: codes part from generate's at frame {same} of "
+                             f"{codes.shape[1]}")
+    err = float(np.abs(audio[: 1920 * same] - full[: 1920 * same]).max()) / scale
+    if not err <= STREAM_AUDIO_SHARE:
+        raise AssertionError(f"stream: {err:.3e} of the largest sample from generate's audio")
+    out = {"frames": n, "generate_frames": int(codes.shape[1]), "frames_equal": same,
+           "rel_err_vs_generate": err, "rel_err_vs_own_whole_clip": own_err,
+           "tolerance_share": STREAM_AUDIO_SHARE}
+    details["stream_vs_generate"] = out
+    log(f"stream against generate, float32 topk=1, CSM-1B: codes equal over {same} of "
+        f"{codes.shape[1]} frames ({n} streamed); audio within {err:.3e} of the largest sample "
+        f"(tolerance {STREAM_AUDIO_SHARE}); against the whole-clip decode of its own codes "
+        f"{own_err:.3e}")
+    free(gen)
+
+
+def stream_serving(params, args, mimi, n_slots, order, details, total):
+    """``csm-torch-serve --stream``'s serving, in process: one server
+    (phase 4c's protocol, ramp chunk 2 as ``--stream`` sets it, graphs
+    captured by ``warmup``) runs the requests without sinks (``plain``) and
+    with a ``_StreamSink`` a request (``stream``: each request's frames
+    stream-decoded on the serving thread, its wav written when it ends), in
+    the given order; launch counts held per run (``served``); per-stream
+    first audio from the run's start and after admission."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from csm_torch.cli.serve import _StreamSink
+    from csm_torch.serving import BatchedServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(params, args, n_slots=n_slots, max_seq_len=SERVE_MAX_SEQ,
+                           temperature=0.9, topk=50, chunk_size=SERVE_CHUNK, ramp_chunk=2)
+    warmup_s = server.warmup()
+    reqs = serve_requests(args, 2 * n_slots)
+    seen = {}
+    for mode in order:
+        name = f"stream_{mode}_{n_slots}" + ("_again" if mode in seen else "")
+        seen[mode] = True
+        with tempfile.TemporaryDirectory() as d:
+            sinks = {}
+            if mode == "stream":
+                t_ref = time.perf_counter()
+                for r in reqs:
+                    r.on_frames = sinks[r.request_id] = _StreamSink(
+                        mimi.stream_decoder(), SERVE_CHUNK, str(Path(d) / f"{r.request_id}.wav"),
+                        24_000, t_ref)
+            by_id, stats, got = served(name, server, reqs, args, ("decode_attention",))
+            for r in reqs:
+                r.on_frames = None
+            extra = {}
+            if sinks:
+                first = sorted(sk.first_audio_s for sk in sinks.values())
+                after = sorted(sk.first_audio_s - stats["requests"][rid]["admit_s"]
+                               for rid, sk in sinks.items())
+                written = sum(Path(sk.out_path).stat().st_size > 44 for sk in sinks.values())
+                if written != len(reqs):
+                    raise AssertionError(f"{name}: {written} of {len(reqs)} wavs written")
+                extra = {"first_audio_s_median": statistics.median(first),
+                         "first_audio_s_max": first[-1],
+                         "first_audio_after_admit_s_median": statistics.median(after),
+                         "first_audio_after_admit_s_max": after[-1]}
+        for k, v in got.items():
+            total[k] += v
+        serve_record(name, server, by_id, stats, warmup_s, details, **extra)
+    server.close()
+
+
+def http_stream_start():
+    """``csm-torch-serve --http 127.0.0.1:0 --warmup --stream`` at CSM-1B
+    width (random weights, 8 slots), started; ``http_stream_posts`` talks to
+    it."""
+    return subprocess.Popen(serve_cmd("--http", "127.0.0.1:0", "--warmup", "--stream",
+                                      "--max-seq-len", "256", "--no-watermark"),
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def http_stream_posts(proc, t_start, details, frames=20):
+    """8 concurrent POST /generate to the ``--stream`` daemon, each read as
+    it comes: the seconds from the POSTs' start to its first PCM byte and to
+    its last; each answer is audio/L16 of its 20 frames; /health counts 8;
+    /shutdown drains and the daemon exits 0."""
+    import re
+    import threading
+    import urllib.request
+
+    out, port = [], {}
+
+    def read():
+        for line in proc.stdout:
+            out.append(line)
+            m = re.search(r"Serving on http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                port["n"] = int(m.group(1))
+                return
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout=300)
+    if "n" not in port:
+        raise AssertionError("--http --stream never served:\n" + "".join(out))
+    up_s = time.perf_counter() - t_start
+    base = f"http://127.0.0.1:{port['n']}"
+    answers = {}
+    t0 = time.perf_counter()
+
+    def post(i):
+        body = {"text": f"Request {i} to the card.", "max_audio_length_ms": 80 * frames}
+        req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            first = r.read(1)
+            t_first = time.perf_counter() - t0
+            rest = r.read()
+            answers[i] = (r.status, r.headers["Content-Type"], first + rest, t_first,
+                          time.perf_counter() - t0)
+
+    posts = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+    for t in posts:
+        t.start()
+    for t in posts:
+        t.join(timeout=300)
+    for i in range(8):
+        status, ctype, pcm, *_ = answers.get(i, (None,) * 5)
+        if (status, ctype) != (200, "audio/L16;rate=24000;channels=1") or len(pcm) != 2 * 1920 * frames:
+            raise AssertionError(f"--http --stream: POST {i} answered {status} {ctype}, "
+                                 f"{None if pcm is None else len(pcm)} bytes")
+    health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+    if health["served"] != 8:
+        raise AssertionError(f"--http --stream: health {health}")
+    urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
+    log_out = "".join(out) + proc.communicate(timeout=300)[0]
+    if proc.returncode != 0 or "HTTP served 8 requests" not in log_out:
+        raise AssertionError(f"--http --stream exited {proc.returncode}:\n{log_out}")
+    first = sorted(a[3] for a in answers.values())
+    last = sorted(a[4] for a in answers.values())
+    rec = {"up_s": up_s, "first_byte_s": first, "last_byte_s": last,
+           "first_byte_s_median": statistics.median(first), "last_byte_s_max": last[-1]}
+    details["http_stream"] = rec
+    log(f"--http --stream: up in {up_s:.1f} s; 8 concurrent POSTs of {frames} frames: first PCM "
+        f"byte after {first[0]:.3f}-{first[-1]:.3f} s (median {rec['first_byte_s_median']:.3f}), "
+        f"last byte after {last[0]:.3f}-{last[-1]:.3f} s")
+
+
+def phase_streaming(details):
+    """Audio streaming at CSM-1B width on random weights: the ``--http
+    --stream`` daemon started first (its load and warmup overlap the
+    float32 check); the stream against ``generate`` in float32 at topk=1;
+    the daemon's 8 concurrent POSTs; ``generate_streaming`` at chunk_frames
+    2, 6 and 13 over a bf16 and an int8 KV cache on the same weights (a
+    warm-up call per key, then a timed call in a launch-count window);
+    the codec step's ms at Tc = 1, 2, 8, 13; then ``--stream`` serving at 8
+    slots (plain, stream, stream, plain) and 64 (plain, stream).  Returns
+    the launches summed over the windows."""
+    import gc
+
+    import torch
+
+    from csm_torch import csm_1b_args, load_csm
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.generator import Generator
+
+    total = dict.fromkeys(read_counts(), 0)
+    t = {}
+    t0 = time.perf_counter()
+    proc = http_stream_start()
+    try:
+        stream_vs_generate(details)
+        t["stream_vs_generate"] = time.perf_counter() - t0
+        http_stream_posts(proc, t0, details)
+        t["http_stream"] = time.perf_counter() - t0 - sum(t.values())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    args = csm_1b_args()
+    tok = ByteTokenizer()
+    gen = load_csm(args=args, text_tokenizer=tok)
+    gen8 = Generator(gen.params, args, mimi=gen.mimi, text_tokenizer=tok, device="cuda",
+                     kv_dtype=torch.int8)
+    streams = details["streams"] = {}
+    for cf in STREAM_CHUNK_FRAMES:
+        for name, g in (("bf16", gen), ("int8", gen8)):
+            stream_once(g, cf, args, name == "int8", hold=False)  # its server, captures
+            rec, _ = stream_once(g, cf, args, name == "int8")
+            for k, v in rec["launches"].items():
+                total[k] += v
+            streams[f"{name}_{cf}"] = rec
+            log(f"generate_streaming, {name} KV, chunk_frames {cf}, on {details['card']}: first "
+                f"audio {1e3 * rec['first_audio_s']:.1f} ms, {rec['frames']} frames in "
+                f"{rec['wall_s']:.3f} s, arrivals (s) "
+                + " ".join(f"{a:.3f}" for a in rec["arrivals_s"])
+                + f"; chunks late for playback: {rec['late_chunks'] or 'none'}")
+    t["generate_streaming"] = time.perf_counter() - t0 - sum(t.values())
+    details["codec_step_ms"] = codec_step_ms(gen, details)
+    t["codec"] = time.perf_counter() - t0 - sum(t.values())
+    mimi, params = gen.mimi, gen.params
+    free(gen8)
+    free(gen)  # its graphs and streaming servers; the weights stay for serving
+    stream_serving(params, args, mimi, 8, ("plain", "stream", "stream", "plain"), details, total)
+    stream_serving(params, args, mimi, 64, ("plain", "stream"), details, total)
+    t["stream_serving"] = time.perf_counter() - t0 - sum(t.values())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["streaming_s"] = t
+    details["streaming_launches"] = total
+    log(f"streaming launches over the windows: {total}; seconds {t}")
+    return total
+
+
 # ---------------------------------------------------------------- phase 5
 
 
 class Recording:
+    """A codec that keeps the codes it decodes: whole clips in ``decoded``,
+    its stream decoders' chunks in ``streamed``."""
+
     def __init__(self, inner):
-        self.inner, self.decoded = inner, []
+        self.inner, self.decoded, self.streamed = inner, [], []
 
     def encode(self, audio):
         return self.inner.encode(audio)
@@ -2602,6 +3095,18 @@ class Recording:
     def decode(self, codes):
         self.decoded.append(codes.copy())
         return self.inner.decode(codes)
+
+    def stream_decoder(self):
+        dec, seen = self.inner.stream_decoder(), self.streamed
+
+        class Stream:
+            cfg = dec.cfg
+
+            def decode_chunk(self, codes):
+                seen.append(codes.copy())
+                return dec.decode_chunk(codes)
+
+        return Stream()
 
 
 def phase_reference(details):
@@ -3025,11 +3530,14 @@ def main() -> int:
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         phase_s = details["phase_s"] = {}
 
+        held = details["allocated_after_phase_gib"] = {}
+
         def timed(name, fn, *a):
             t0 = time.perf_counter()
             out = fn(*a)
             phase_s[name] = time.perf_counter() - t0
-            log(f"phase {name}: {phase_s[name]:.1f} s")
+            held[name] = torch.cuda.memory_allocated() / 2**30
+            log(f"phase {name}: {phase_s[name]:.1f} s; the card holds {held[name]:.3f} GiB after it")
             return out
 
         kernels = timed("3", phase_kernels, dev, flush, details)
@@ -3038,7 +3546,8 @@ def main() -> int:
         timed("4b", phase_files, details)
         serving = timed("4c", phase_serving, details)
         windowed = timed("4d", phase_prefix_window, details)
-        launches["int4_matmul"] = timed("4q", phase_quantized, details)
+        streaming = timed("4e", phase_streaming, details)
+        launches.update(timed("4q", phase_quantized, details))
         timed("5", phase_reference, details)
         launches.update(timed("6", phase_training, details, dev))
         timed("7", phase_train_tiny, details, dev)
@@ -3048,6 +3557,7 @@ def main() -> int:
             k["launches"] = launches[k["name"]]
             k["serving_launches"] = serving[k["name"]]
             k["prefix_window_launches"] = windowed[k["name"]]
+            k["streaming_launches"] = streaming[k["name"]]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -6,8 +6,10 @@ voice presets, context segments from audio/text/speaker triples, sampling
 controls and seed, the quantized modes and the 8B flavor, the watermark
 (on unless ``--no-watermark``), and a stats line with the real-time factor.
 ``--device`` picks the card (the default) or the CPU; ``--tiny-test`` runs
-a tiny random model and codec.  ``--stream`` and ``--lora-path`` wait for
-later slices and raise.
+a tiny random model and codec.  ``--stream`` generates through
+``Generator.generate_streaming``, prints each chunk as it arrives and
+watermarks the whole clip at the end; ``--lora-path`` waits for a later
+slice and raises.
 
     python -m csm_torch.cli.generate --model-path ckpt.pt --mimi-path model.safetensors \\
         --text "Hello." --output audio.wav
@@ -63,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--watermark-ckpt", type=str, default=None,
                    help="Directory with silentcipher torch checkpoints")
     p.add_argument("--stream", action="store_true",
-                   help="Stream generation (not ported yet: ROADMAP.md A.9 and A.14)")
+                   help="Stream generation: audio chunks of --chunk-frames frames as they are "
+                        "decoded (carried codec state), their arrival times printed; the "
+                        "watermark goes on the whole clip at the end")
     p.add_argument("--chunk-frames", type=int, default=6, help="Frames per streamed chunk")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
@@ -101,12 +105,41 @@ def tiny_test_limit_ms(generator, tokens) -> int:
     return (generator.max_seq_len - bucket) * 80
 
 
+def stream(args, generator, speaker, context):
+    """``--stream``: the chunks of ``generate_streaming`` with their arrival
+    times, then the watermark on their concatenation; fills
+    ``generator.last_stats`` with wall s, RTF, frames/s and watermark s."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    chunks = []
+    for i, (chunk, _) in enumerate(generator.generate_streaming(
+            args.text, speaker=speaker, context=context,
+            max_audio_length_ms=args.max_audio_length_ms, temperature=args.temperature,
+            topk=args.topk, seed=args.seed, chunk_frames=args.chunk_frames)):
+        chunks.append(chunk)
+        print(f"  {'first audio' if i == 0 else f'chunk {i}'}: "
+              f"+{len(chunk) / generator.sample_rate * 1000:.0f} ms audio at "
+              f"t={time.perf_counter() - t0:.3f}s", flush=True)
+    audio = np.concatenate(chunks)
+    watermark_s = 0.0
+    if generator.watermarker is not None and audio.shape[0]:
+        t_wm = time.perf_counter()
+        audio, _ = generator.watermarker(audio, generator.sample_rate)
+        watermark_s = time.perf_counter() - t_wm
+    wall = time.perf_counter() - t0
+    generator.last_stats = {
+        "wall_s": wall, "watermark_s": watermark_s, "chunks": len(chunks),
+        "rtf": len(audio) / generator.sample_rate / max(wall, 1e-9),
+        "frames_per_s": sum(len(c) for c in chunks) / 1920 / max(wall, 1e-9),
+    }
+    return np.asarray(audio, np.float32)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from csm_torch.generator import _waits
 
-    if args.stream:
-        raise _waits("streaming generation (--stream)", "A.9 and A.14")
     if args.lora_path is not None:
         raise _waits("LoRA adapters (--lora-path)", "A.10b")
     speaker = resolve_speaker(args)
@@ -138,11 +171,14 @@ def main(argv=None) -> int:
     from csm_torch.utils.observability import profile_trace
 
     with profile_trace(args.profile, enabled=args.profile is not None):
-        audio = generator.generate(
-            args.text, speaker=speaker, context=context,
-            max_audio_length_ms=args.max_audio_length_ms, temperature=args.temperature,
-            topk=args.topk, seed=args.seed,
-        )
+        if args.stream:
+            audio = stream(args, generator, speaker, context)
+        else:
+            audio = generator.generate(
+                args.text, speaker=speaker, context=context,
+                max_audio_length_ms=args.max_audio_length_ms, temperature=args.temperature,
+                topk=args.topk, seed=args.seed,
+            )
 
     from csm_torch.data.audio import save_wav
 

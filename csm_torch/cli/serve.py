@@ -17,13 +17,21 @@ Mimi and watermarked unless ``--no-watermark``.  Three ways in:
     503 at once.  Only the main thread touches the card: handler threads
     queue their request and wait.
 
+``--stream``: each request's frames go through a streaming Mimi decoder of
+its own (carried codec state, one ``--chunk-size`` block at a time, on the
+main thread, as the chunks arrive), so its audio is ready as it decodes:
+``--requests`` and ``--follow`` write its wav the moment it finishes and
+print its first-audio time (from the start of the run, or from the line's
+arrival); ``--http`` answers ``POST /generate`` with s16le PCM
+(``audio/L16``, close-delimited) as the chunks decode.  The watermark is
+skipped (it works on whole utterances).
+
 ``--prefix NAME=FILE.json`` registers a voice preset at startup (its
 context audio Mimi-encoded and run through the backbone once); a request
 naming it carries only its own text.  ``--window N`` serves sessions of
 any length over an N-column sliding-window cache.  ``--device`` picks the
 card (the default) or the CPU; ``--tiny-test`` runs a tiny random model and
-codec.  ``--stream``, ``--adapter`` and ``--lora-path`` wait for later
-slices and raise.
+codec.  ``--adapter`` and ``--lora-path`` wait for a later slice and raise.
 
 Request lines: {"id": str|int, "text": "...", "speaker": 0,
                 "max_audio_length_ms": 10000,
@@ -44,6 +52,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from csm_torch.cli.common import add_device_flag, add_tiny_test_flag, build_generator
 
@@ -102,7 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run (on a card: capture) every serving function, registered prefixes "
                         "included, before the requests")
     p.add_argument("--stream", action="store_true",
-                   help="per-request audio streaming (not ported yet: ROADMAP.md A.9 and A.14)")
+                   help="Per-request audio streaming: each request's frames are Mimi-decoded "
+                        "as its chunks arrive (carried codec state); its wav is written when it "
+                        "finishes, with its first-audio time (--http: s16le PCM as it decodes). "
+                        "The watermark is skipped")
     add_tiny_test_flag(p)
     add_device_flag(p)
     return p
@@ -121,12 +133,128 @@ def _refuse_unported(args) -> None:
     from csm_torch.generator import _waits
 
     for flag, what, item in (
-        (args.stream, "per-request audio streaming (--stream)", "A.9 and A.14"),
         (args.adapter, "multi-LoRA serving (--adapter)", "A.10b"),
         (args.lora_path is not None, "LoRA adapters (--lora-path)", "A.10b"),
     ):
         if flag:
             raise _waits(what, item)
+
+
+class _ChunkedDecodeSink:
+    """A request's ``on_frames``: buffer its frames and send each full
+    ``chunk``-frame block through its own streaming Mimi decoder
+    (codec/streaming.py) as soon as it is there, the last block padded to
+    ``chunk`` frames (one codec shape), without waiting for the card
+    (``decode_chunk_async``); each block's samples go to ``_emit`` with the
+    count to keep.  Called on the serving thread."""
+
+    def __init__(self, decoder, chunk: int):
+        self.decoder, self.chunk = decoder, max(1, chunk)
+        self.frames: list = []  # (K,) frames
+        self.decoded = 0
+
+    def _decode(self, n: int, pad_to=None) -> None:
+        block = np.stack(self.frames[self.decoded : self.decoded + n])
+        if pad_to and block.shape[0] < pad_to:  # the last block only
+            block = np.concatenate([block, np.zeros((pad_to - n, block.shape[1]), block.dtype)])
+        audio = self.decoder.decode_chunk_async(block.T)
+        self.decoded += n
+        self._emit(audio, n * self.decoder.cfg.samples_per_frame)
+
+    def _emit(self, device_audio, keep: int) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _finish(self) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __call__(self, rid, new, done: bool) -> None:
+        self.frames.extend(new)
+        while len(self.frames) - self.decoded >= self.chunk:
+            self._decode(self.chunk)
+        if done:
+            rem = len(self.frames) - self.decoded
+            if rem:
+                self._decode(rem, pad_to=self.chunk)
+            self._finish()
+
+
+class _StreamSink(_ChunkedDecodeSink):
+    """``--stream`` to disk: keep the decoded blocks, wait for the card on
+    the first only (to time first audio), and write the wav when the
+    request finishes.  Times are seconds after ``t0`` (perf_counter)."""
+
+    def __init__(self, decoder, chunk: int, out_path: str, sample_rate: int, t0: float):
+        super().__init__(decoder, chunk)
+        self.out_path, self.sample_rate, self.t0 = out_path, sample_rate, t0
+        self.audio: list = []  # (device samples, count to keep)
+        self.first_audio_s = self.done_s = None
+
+    def _emit(self, device_audio, keep: int) -> None:
+        self.audio.append((device_audio, keep))
+        if self.first_audio_s is None:
+            if device_audio.is_cuda:
+                ev = torch.cuda.Event()
+                ev.record()
+                ev.synchronize()
+            self.first_audio_s = time.perf_counter() - self.t0
+
+    def _finish(self) -> None:
+        from csm_torch.data.audio import save_wav
+
+        self.done_s = time.perf_counter() - self.t0
+        audio = (np.concatenate([a[:keep].float().cpu().numpy() for a, keep in self.audio])
+                 if self.audio else np.zeros(0, np.float32))
+        save_wav(self.out_path, audio, self.sample_rate)
+
+
+class _HttpStreamSink(_ChunkedDecodeSink):
+    """``--http --stream``: each decoded block is copied to pinned host
+    memory without waiting (an event marks the copy's end); ``pump``, on
+    the main thread, hands the blocks that have landed, in order, to the
+    request's handler thread as s16le PCM on ``q``, then None once the
+    request has finished.  The handler thread only writes bytes: it makes
+    no CUDA call, which would fail under a graph captured meanwhile."""
+
+    def __init__(self, decoder, chunk: int):
+        import queue
+
+        super().__init__(decoder, chunk)
+        self.q: "queue.Queue" = queue.Queue()
+        self._copies: list = []  # (host samples, event or None), oldest first
+        self._closed = self.ended = False
+
+    def _emit(self, device_audio, keep: int) -> None:
+        audio = device_audio[:keep]
+        ev = None
+        if audio.is_cuda:
+            host = torch.empty(audio.shape, dtype=audio.dtype, pin_memory=True)
+            host.copy_(audio, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            audio = host
+        self._copies.append((audio, ev))
+        self.pump()
+
+    def _finish(self) -> None:
+        self._closed = True
+        self.pump()
+
+    def pump(self) -> bool:
+        """Main thread: pass on every block whose copy has landed, in order,
+        and the end after the last; True once the end has been passed on."""
+        while self._copies and (self._copies[0][1] is None or self._copies[0][1].query()):
+            self.q.put(self.to_pcm(self._copies.pop(0)[0]))
+        if self._closed and not self._copies and not self.ended:
+            self.q.put(None)
+            self.ended = True
+        return self.ended
+
+    @staticmethod
+    def to_pcm(audio) -> bytes:
+        """Float samples in [-1, 1] (host) → s16le bytes, as ``wav_bytes``
+        writes them."""
+        a = np.asarray(audio, np.float32).reshape(-1)
+        return np.clip(a * 32767.0, -32768, 32767).astype("<i2").tobytes()
 
 
 class _StdinPoller:
@@ -161,10 +289,14 @@ class _StdinPoller:
         return [ln for ln in lines if ln], self.eof
 
 
-def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
+def _serve_follow(server, to_stream_request, emit_result, register_prefix_file,
+                  attach_sink=None, drop_sink=None):
     """The stdin daemon: poll for JSONL lines, admit requests at chunk
     boundaries, emit each result as it finishes; at EOF, exit once nothing
-    is pending or active.  Returns (served, frames, wall seconds)."""
+    is pending or active.  ``attach_sink(request, t_arrival)`` (``--stream``)
+    gives a request its streaming sink when its line arrives; a request
+    dropped at submit closes its sink and ``drop_sink(request_id)`` releases
+    it.  Returns (served, frames, wall seconds)."""
     pending = []
     n_served = total_frames = n_seen = 0
     in_flight = set()  # request ids: two in flight with one id would share a wav path
@@ -194,10 +326,15 @@ def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
                     continue
                 if isinstance(r, dict) and "cancel" in r:
                     cid = r["cancel"]
-                    n_before = len(pending)
+                    waiting = [p for p in pending if p.request_id == cid]
                     pending = [p for p in pending if p.request_id != cid]
+                    for sr in waiting:  # never admitted: close and release its sink
+                        if sr.on_frames is not None:
+                            sr.on_frames(cid, np.zeros((0, 0), np.int32), True)
+                            if drop_sink is not None:
+                                drop_sink(cid)
                     res = server.cancel(cid)
-                    if res is not None or len(pending) != n_before:
+                    if res is not None or waiting:
                         in_flight.discard(cid)
                         if res is not None:
                             emit_result(res)  # its partial wav
@@ -220,6 +357,8 @@ def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
                     print(f"  duplicate in-flight id {sr.request_id!r} rejected", file=sys.stderr)
                     continue
                 in_flight.add(sr.request_id)
+                if attach_sink is not None:
+                    attach_sink(sr, time.perf_counter())  # first audio from the arrival
                 pending.append(sr)
         while pending:
             try:
@@ -229,6 +368,10 @@ def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
                 sr = pending.pop(0)
                 in_flight.discard(sr.request_id)
                 print(f"  request {sr.request_id!r} dropped at submit: {e}", file=sys.stderr)
+                if sr.on_frames is not None:  # close its sink, then release it
+                    sr.on_frames(sr.request_id, np.zeros((0, 0), np.int32), True)
+                    if drop_sink is not None:
+                        drop_sink(sr.request_id)
                 continue
             pending.pop(0)
         for res in server.step():
@@ -243,10 +386,13 @@ def _serve_follow(server, to_stream_request, emit_result, register_prefix_file):
     return n_served, total_frames, time.time() - t0
 
 
-def _make_http_handler(server, inbox, stop, stats_box):
+def _make_http_handler(server, inbox, stop, stats_box, cancel_q=None, sample_rate=24_000):
     """The request handler class of ``_serve_http``.  Handler threads only
     parse, queue and wait: the main thread serves.  A full ``inbox`` (the
-    ``--http-queue`` bound) answers 503 at once."""
+    ``--http-queue`` bound) answers 503 at once.  A streamed request
+    (``pcm_queue`` in its holder) is answered with the PCM bytes the main
+    thread queues, close-delimited; a client that hangs up has its request
+    id put on ``cancel_q``."""
     import queue
     import threading
     from http.server import BaseHTTPRequestHandler
@@ -331,6 +477,24 @@ def _make_http_handler(server, inbox, stop, stats_box):
             done.wait()
             if "error" in holder:
                 return self._json_reply(400, {"error": holder["error"]})
+            if "pcm_queue" in holder:  # --stream: s16le PCM as it decodes
+                self.send_response(200)
+                self.send_header("Content-Type", f"audio/L16;rate={sample_rate};channels=1")
+                self.end_headers()
+                q = holder["pcm_queue"]
+                while True:
+                    pcm = q.get()
+                    if pcm is None:
+                        break
+                    try:
+                        self.wfile.write(pcm)
+                        self.wfile.flush()
+                    except OSError:  # the client hung up: free its slot
+                        if cancel_q is not None:
+                            cancel_q.put(holder.get("request_id"))
+                        return
+                self.close_connection = True
+                return
             wav = holder["wav"]
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
@@ -343,11 +507,14 @@ def _make_http_handler(server, inbox, stop, stats_box):
 
 
 def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
-                register_prefix_file):
+                register_prefix_file, make_stream_sink=None, sample_rate=24_000):
     """The HTTP daemon.  Handler threads queue each request and wait on its
     event; the main thread alone drives the server (admits at chunk
     boundaries, decodes, turns each finished request into wav bytes) and
-    fulfils the waiters, so concurrent POSTs decode together.  SIGTERM,
+    fulfils the waiters, so concurrent POSTs decode together.  With
+    ``make_stream_sink`` (``--stream``) each request gets a sink whose PCM
+    its handler writes as it comes; the main thread pumps the sinks every
+    tick, and a client that hangs up has its request cancelled.  SIGTERM,
     SIGINT and POST /shutdown drain what is in flight, then return.  If the
     drive loop dies, every waiting handler is answered before the exception
     propagates.  Returns (served, frames, wall seconds)."""
@@ -360,8 +527,10 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
     inbox: "queue.Queue" = queue.Queue(maxsize=queue_bound)
     stop = threading.Event()
     stats_box = {"served": 0, "frames": 0, "t0": time.time()}
+    cancel_q: "queue.Queue" = queue.Queue()
     httpd = ThreadingHTTPServer((host or "127.0.0.1", int(port)),
-                                _make_http_handler(server, inbox, stop, stats_box))
+                                _make_http_handler(server, inbox, stop, stats_box, cancel_q,
+                                                   sample_rate))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
 
@@ -374,6 +543,7 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
     print(f"Serving on http://{bound_host}:{bound_port} (POST /generate, GET /health, "
           f"GET /metrics, POST /prefixes, POST /shutdown; SIGTERM drains)", flush=True)
     waiters = {}  # request id -> (done event, holder)
+    sinks = {}  # request id -> streaming sink whose end has not been passed on
     pending = []
     n_seen = 0
     t0 = time.time()
@@ -405,20 +575,40 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
             done.set()
         else:
             sr.request_id = n_seen  # a key of its own, whatever id the client gave
+            holder["request_id"] = n_seen  # what a hung-up handler cancels
+            if make_stream_sink is not None:
+                sink = sinks[n_seen] = make_stream_sink()
+                sr.on_frames = sink
+                holder["pcm_queue"] = sink.q
+                done.set()  # the handler starts its response now
             waiters[n_seen] = (done, holder)
             pending.append(sr)
         n_seen += 1
 
+    def busy():
+        return bool(pending or server.active.any() or sinks)
+
     try:
-        while not (stop.is_set() and not pending and not server.active.any() and inbox.empty()):
+        while not (stop.is_set() and not busy() and inbox.empty()):
             try:
                 # wait briefly for an arrival, then drain the inbox: k clients at
                 # once admit into one decode, not one a chunk
-                admit(*inbox.get(timeout=0.02 if (pending or server.active.any()) else 0.25))
+                admit(*inbox.get(timeout=0.02 if busy() else 0.25))
                 while True:
                     admit(*inbox.get_nowait())
             except queue.Empty:
                 pass
+            while True:  # hung-up stream clients: no decode for an audience of none
+                try:
+                    rid = cancel_q.get_nowait()
+                except queue.Empty:
+                    break
+                if rid in waiters:
+                    pending[:] = [p for p in pending if p.request_id != rid]
+                    server.cancel(rid)  # None when it was still pending
+                    waiters.pop(rid)
+                    sinks.pop(rid, None)
+                    stats_box["cancelled"] = stats_box.get("cancelled", 0) + 1
             while pending:
                 try:
                     if server.submit(pending[0]) is None:
@@ -426,19 +616,26 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
                 except ValueError as e:  # e.g. its prefix was dropped while it waited
                     sr = pending.pop(0)
                     done, holder = waiters.pop(sr.request_id)
+                    if sr.on_frames is not None:  # its response has begun: end it
+                        sr.on_frames(sr.request_id, np.zeros((0, 0), np.int32), True)
                     holder["error"] = str(e)
                     done.set()
                     continue
                 pending.pop(0)
             for res in server.step():
                 done, holder = waiters.pop(res.request_id)
-                holder["wav"] = finish_audio(res)
-                holder["frames"] = res.frames.shape[0]
-                done.set()
+                if "pcm_queue" not in holder:  # a streamed one has had its audio
+                    holder["wav"] = finish_audio(res)
+                    holder["frames"] = res.frames.shape[0]
+                    done.set()
                 stats_box["served"] += 1
                 stats_box["frames"] += res.frames.shape[0]
+            for rid in [rid for rid, sink in sinks.items() if sink.pump()]:
+                del sinks[rid]
     finally:
         for done, holder in waiters.values():
+            if "pcm_queue" in holder:  # its handler waits on the queue
+                holder["pcm_queue"].put(None)
             if not done.is_set():
                 holder.setdefault("error", "server loop terminated")
                 done.set()
@@ -547,8 +744,8 @@ def main(argv=None) -> int:
         return StreamRequest(tokens, mask, max_frames=max_frames, request_id=rid, prefix=prefix)
 
     ramp_chunk = args.ramp_chunk
-    if ramp_chunk is None and args.http and args.chunk_size > 2:
-        ramp_chunk = 2  # an HTTP client waits for its answer: a short first chunk
+    if ramp_chunk is None and (args.stream or args.http) and args.chunk_size > 2:
+        ramp_chunk = 2  # a listener waits for its first audio: a short first chunk
     server = BatchedServer(
         generator.params, generator.args, n_slots=args.n_slots, max_seq_len=args.max_seq_len,
         temperature=args.temperature, topk=args.topk, compute_dtype=generator.compute_dtype,
@@ -582,6 +779,21 @@ def main(argv=None) -> int:
         print(f"Warmup done in {server.warmup(verbose=True):.1f}s", flush=True)
         server.reset(args.seed)
 
+    if args.stream and wmark is not None:
+        print("--stream: skipping the watermark (it works on whole utterances); watermark "
+              "the written audio afterwards if needed", file=sys.stderr)
+        wmark = None
+    sinks = {}  # --stream: request id -> its sink, until its result is emitted
+
+    def attach_sink(sr, t_ref):
+        """A request's streaming decoder and wav writer; first audio counts
+        from ``t_ref`` (the run's start, or the line's arrival)."""
+        out = os.path.join(args.output_dir, f"{sr.request_id}.wav")
+        sink = sinks[sr.request_id] = _StreamSink(generator.mimi.stream_decoder(),
+                                                  args.chunk_size, out, generator.sample_rate,
+                                                  t_ref)
+        sr.on_frames = sink
+
     def finish_audio(res):
         """A result's wav samples: Mimi decode, then the watermark."""
         audio = (generator.mimi.decode(res.frames.T) if res.frames.shape[0]
@@ -592,22 +804,33 @@ def main(argv=None) -> int:
 
     def emit_result(res):
         out = os.path.join(args.output_dir, f"{res.request_id}.wav")
-        save_wav(out, finish_audio(res), generator.sample_rate)
         n = res.frames.shape[0]
+        if args.stream:  # its sink has written the wav; drop the sink and its state
+            sink = sinks.pop(res.request_id)
+            print(f"  {out}: {n} frames ({n * MS_PER_FRAME / 1000:.2f}s), first audio "
+                  f"+{1e3 * (sink.first_audio_s or 0):.0f} ms, done +{sink.done_s or 0:.2f} s",
+                  flush=True)
+            return
+        save_wav(out, finish_audio(res), generator.sample_rate)
         print(f"  {out}: {n} frames ({n * MS_PER_FRAME / 1000:.2f}s)", flush=True)
 
     if args.http:
         n_served, frames, wall = _serve_http(
             args.http, args.http_queue, server, to_stream_request,
             lambda res: wav_bytes(finish_audio(res), generator.sample_rate),
-            register_prefix_file)
+            register_prefix_file,
+            make_stream_sink=(lambda: _HttpStreamSink(generator.mimi.stream_decoder(),
+                                                      args.chunk_size)) if args.stream else None,
+            sample_rate=generator.sample_rate)
         print(f"HTTP served {n_served} requests in {wall:.2f}s: {frames} frames "
               f"(weights {server.weight_dtype}, {args.n_slots} slots)")
         return 0
     os.makedirs(args.output_dir, exist_ok=True)
     if args.follow:
-        n_served, frames, wall = _serve_follow(server, to_stream_request, emit_result,
-                                               register_prefix_file)
+        n_served, frames, wall = _serve_follow(
+            server, to_stream_request, emit_result, register_prefix_file,
+            attach_sink=attach_sink if args.stream else None,
+            drop_sink=lambda rid: sinks.pop(rid, None))
         print(f"Served {n_served} requests in {wall:.2f}s: {frames} frames, "
               f"{frames / max(wall, 1e-9):.1f} frames/s "
               f"(weights {server.weight_dtype}, {args.n_slots} slots)")
@@ -626,6 +849,10 @@ def main(argv=None) -> int:
         print("no servable requests", file=sys.stderr)
         return 1
     t0 = time.time()
+    if args.stream:
+        t_ref = time.perf_counter()  # first audio counts from the run's start
+        for sr in requests:
+            attach_sink(sr, t_ref)
     results, stats = server.run(requests)
     wall = time.time() - t0
     for res in results:

@@ -45,6 +45,21 @@ def conv1d_output_length(length: int, kernel_size: int, stride: int, dilation: i
     return (length + left + right - k_eff) // stride + 1
 
 
+def conv_weight(p: ConvParams, dtype) -> torch.Tensor:
+    """The conv's weight in PyTorch's layout (C_out, C_in // groups, k)."""
+    return p.w.to(dtype).permute(2, 1, 0)
+
+
+def conv_transpose_weight(p: ConvParams, dtype, groups: int = 1) -> torch.Tensor:
+    """The transposed conv's weight in PyTorch's layout (C_in, C_out //
+    groups, k): the stored kernel is pre-flipped for the JAX package's
+    input-dilated conv, so it is flipped back."""
+    k, cin_g, cout = p.w.shape
+    w = p.w.to(dtype).flip(0)  # (k, C_in // groups, C_out)
+    w = w.reshape(k, cin_g, groups, cout // groups).permute(2, 1, 3, 0)
+    return w.reshape(groups * cin_g, cout // groups, k)
+
+
 def causal_conv1d(
     x: torch.Tensor, p: ConvParams, stride: int = 1, dilation: int = 1, groups: int = 1
 ) -> torch.Tensor:
@@ -52,9 +67,8 @@ def causal_conv1d(
     k = p.w.shape[0]
     left, right = causal_conv1d_padding(x.shape[1], k, stride, dilation)
     xc = F.pad(x.transpose(1, 2), (left, right))
-    w = p.w.to(x.dtype).permute(2, 1, 0)  # (C_out, C_in // groups, k)
     b = None if p.b is None else p.b.to(x.dtype)
-    out = F.conv1d(xc, w, b, stride=stride, dilation=dilation, groups=groups)
+    out = F.conv1d(xc, conv_weight(p, x.dtype), b, stride=stride, dilation=dilation, groups=groups)
     return out.transpose(1, 2)
 
 
@@ -67,11 +81,9 @@ def causal_conv_transpose1d(
     The JAX package runs this as an input-dilated conv with the stored
     (pre-flipped) kernel; a transposed conv with the kernel flipped back
     computes the same sums."""
-    k, cin_g, cout = p.w.shape
-    w = p.w.to(x.dtype).flip(0)  # (k, C_in // groups, C_out)
-    w = w.reshape(k, cin_g, groups, cout // groups).permute(2, 1, 3, 0)
-    w = w.reshape(groups * cin_g, cout // groups, k)  # (C_in, C_out // groups, k)
+    k = p.w.shape[0]
     b = None if p.b is None else p.b.to(x.dtype)
-    out = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=stride, groups=groups)
+    out = F.conv_transpose1d(x.transpose(1, 2), conv_transpose_weight(p, x.dtype, groups), b,
+                             stride=stride, groups=groups)
     # full length = (T-1)*stride + k; causal trim k - stride from the right
     return out[:, :, : out.shape[2] - (k - stride)].transpose(1, 2)

@@ -39,9 +39,23 @@
 // nothing; a row with no live key anywhere writes zeros.  With one split
 // (the decoder's 32-slot cache) the block writes its result itself, and the
 // grid launches without the cluster attribute, which alone cost time.
+//
+// The int8 form (csm_decode_attention_int8) reads a QuantKV cache: int8
+// codes (B, T, Hkv, D) and a float32 scale a (row, position, kv head),
+// the layout of ops/kvcache.py.  Its tiles carry the codes and their
+// scale column through the same ring, half the bytes of a bf16 tile, and
+// are dequantized in registers as float(code) * scale rounded to q's type
+// (what dequantize_kv computes), so no dense copy of the cache is made.
+// The tile keeps its keys (64, or 32 at D = 128): a lane's 8 elements are
+// 8 bytes, a warp-step still covers 32 / (D/8) keys, and the plan, the
+// shares and the bitmap of live tiles are the float form's.  The JAX
+// package sends an int8 cache to plain attention instead
+// (csm_tpu/models/llama.py); XLA fuses its dequantization into the read.
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tc.cuh"
@@ -71,6 +85,38 @@ template <> __device__ __forceinline__ void load8<float>(const float* src, float
   csm::load_vec<float>(src, dst);
   csm::load_vec<float>(src + 4, dst + 4);
 }
+// 8 int8 codes (8-byte aligned) as floats, exactly, without the
+// conversion unit (a sixteenth of the FMA rate on the H100, which made it
+// the int8 form's limit at serving's batches): each byte, made offset
+// binary, becomes the low byte of the float 2^23 + (code + 128).
+template <> __device__ __forceinline__ void load8<int8_t>(const int8_t* src, float* dst) {
+  const uint2 r = *reinterpret_cast<const uint2*>(src);
+  const unsigned w[2] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    dst[e] = __uint_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540u | (e % 4))) - 8388736.f;
+}
+
+// x rounded to T and back: round to nearest even for bf16, done on the
+// integer units (x is finite); float32 as it is.
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// Eight elements of a K or V row as the attention reads them: the float
+// form's as loaded; the int8 form's codes times the row's scale, rounded to
+// q's type T, as ops/kvcache.py:dequantize_kv rounds them.
+template <typename T, typename KV>
+__device__ __forceinline__ void load_row8(const KV* src, float scale, float* dst) {
+  load8<KV>(src, dst);
+  if constexpr (std::is_same_v<KV, int8_t>) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = round_to<T>(dst[e] * scale);
+  }
+}
 
 // Fold (om, ol, oa) into (m, l, acc): rescale both to the larger max
 // (scores in log2 units).
@@ -85,18 +131,24 @@ __device__ __forceinline__ void merge(float& m, float& l, float (&acc)[8], float
   m = M;
 }
 
-template <typename T, int D>
+template <typename KV> __host__ __device__ constexpr bool quantized() { return std::is_same_v<KV, int8_t>; }
+
+template <typename KV, int D>
 size_t smem_bytes() {
-  return 2 * 2 * (size_t)tile_keys<D>() * D * sizeof(T)  // ring: 2 slots of K and V tiles
+  return 2 * 2 * (size_t)tile_keys<D>() * D * sizeof(KV)  // ring: 2 slots of K and V tiles
+         + (quantized<KV>() ? 2 * 2 * tile_keys<D>() * sizeof(float) : 0)  // and their scales
          + (kWindowWords + key_words<D>()) * sizeof(unsigned)  // live tiles, live keys
          + (size_t)(kWarps + 1) * kHeads * (D + 2) * sizeof(float);  // warps' and block's (m, l, acc)
 }
 
-template <typename T, int D>
+// T: q's and out's type; KV: the cache's (T, or int8 with the scales ksc/vsc)
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
-                        const T* __restrict__ k,        // (B, T, Hkv, D)
-                        const T* __restrict__ v,        // (B, T, Hkv, D)
+                        const KV* __restrict__ k,       // (B, T, Hkv, D)
+                        const KV* __restrict__ v,       // (B, T, Hkv, D)
+                        const float* __restrict__ ksc,  // (B, T, Hkv) scales of int8 k, else unused
+                        const float* __restrict__ vsc,  // (B, T, Hkv) scales of int8 v
                         const bool* __restrict__ mask,  // (B|1, T)
                         T* __restrict__ out,            // (B, Hq, D)
                         int T_len, int Hq, int Hkv, long long mask_bstride, float scale) {
@@ -104,9 +156,11 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
   constexpr int LK = D / 8;                 // lanes a key
   constexpr int KW = 32 / LK;               // keys a warp-step
   constexpr int NK = TT / (kWarps * KW);    // keys a lane group takes from a tile
-  constexpr int VN = csm::Vec<T>::n;        // elements in 16 bytes
+  constexpr int VN = csm::Vec<KV>::n;       // cache elements in 16 bytes
   constexpr int CPR = D / VN;               // 16-byte chunks a row
+  constexpr bool kQuant = quantized<KV>();
   static_assert(NK >= 1 && TT % (kWarps * KW) == 0, "tile must cover whole warp-steps");
+  static_assert(CPR >= 1, "a row must be whole 16-byte chunks");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), cs = (int)cluster.num_blocks();
@@ -120,8 +174,9 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
   const bool* mb = mask + (size_t)b * mask_bstride;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);  // [slot][K | V][TT][D]
-  unsigned* bits = reinterpret_cast<unsigned*>(smem + 2 * 2 * TT * D * sizeof(T));
+  KV* ring = reinterpret_cast<KV*>(smem);  // [slot][K | V][TT][D]
+  float* sring = reinterpret_cast<float*>(smem + 2 * 2 * TT * D * sizeof(KV));  // [slot][K | V][TT]
+  unsigned* bits = reinterpret_cast<unsigned*>(sring + (kQuant ? 2 * 2 * TT : 0));
   unsigned* key_bits = bits + kWindowWords;  // the window's keys, 32 a word
   float* wm = reinterpret_cast<float*>(key_bits + key_words<D>());  // [warp][kHeads]
   float* wl = wm + kWarps * kHeads;
@@ -155,8 +210,8 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
 
   auto load = [&](int tile, int slot) {
     const int t0 = tile * TT, n = min(TT, T_len - t0);
-    T* ks = ring + (size_t)slot * 2 * TT * D;
-    T* vs = ks + TT * D;
+    KV* ks = ring + (size_t)slot * 2 * TT * D;
+    KV* vs = ks + TT * D;
     for (int i = tid; i < TT * CPR; i += kThreads) {
       const int r = i / CPR, c = (i % CPR) * VN;
       const bool ok = r < n;
@@ -164,11 +219,21 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
       csm::tc::cp_async16(ks + r * D + c, ok ? k + off : k, ok);
       csm::tc::cp_async16(vs + r * D + c, ok ? v + off : v, ok);
     }
+    if constexpr (kQuant) {  // the tile's scale column: 4 bytes a key (0 past T)
+      float* kss = sring + slot * 2 * TT;
+      for (int r = tid; r < TT; r += kThreads) {
+        const bool ok = r < n;
+        const size_t off = ((size_t)b * T_len + t0 + r) * Hkv + kvh;
+        csm::tc::cp_async4(kss + r, ok ? ksc + off : ksc, ok);
+        csm::tc::cp_async4(kss + TT + r, ok ? vsc + off : vsc, ok);
+      }
+    }
   };
 
   auto compute = [&](int tile, int slot, int w0) {
-    const T* ks = ring + (size_t)slot * 2 * TT * D;
-    const T* vs = ks + TT * D;
+    const KV* ks = ring + (size_t)slot * 2 * TT * D;
+    const KV* vs = ks + TT * D;
+    const float* kss = sring + slot * 2 * TT;  // read only by the int8 form
     float s[NK][kHeads];
     bool live[NK];
 #pragma unroll
@@ -176,7 +241,7 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
       const int kt = r * kWarps * KW + warp * KW + lg, t = tile * TT + kt, kw = t - w0 * TT;
       live[r] = t < T_len && (key_bits[kw >> 5] >> (kw & 31)) & 1u;
       float kf[8];
-      load8<T>(ks + kt * D + 8 * ld, kf);
+      load_row8<T, KV>(ks + kt * D + 8 * ld, kQuant ? kss[kt] : 0.f, kf);
 #pragma unroll
       for (int g = 0; g < kHeads; ++g) {
         float a = 0.f;
@@ -210,7 +275,7 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
       if (!live[r]) continue;
       const int kt = r * kWarps * KW + warp * KW + lg;
       float vf[8];
-      load8<T>(vs + kt * D + 8 * ld, vf);
+      load_row8<T, KV>(vs + kt * D + 8 * ld, kQuant ? kss[TT + kt] : 0.f, vf);
 #pragma unroll
       for (int g = 0; g < kHeads; ++g) {
         const float p = csm::tc::exp2_approx(s[r][g] - m[g]);
@@ -348,35 +413,43 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hq, D)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int B, int T_len, int Hq, int Hkv, long long mask_bstride, float scale,
-                   int tile, int splits, cudaStream_t stream) {
+// The cache's pointers: k and v (of type KV), and for int8 their scales.
+struct Cache {
+  const void* k;
+  const void* v;
+  const void* ks;
+  const void* vs;
+};
+
+template <typename T, typename KV, int D>
+cudaError_t launch(const void* q, Cache c, const void* mask, void* out, int B, int T_len,
+                   int Hq, int Hkv, long long mask_bstride, float scale, int tile, int splits,
+                   cudaStream_t stream) {
   constexpr int TT = tile_keys<D>();
   if (tile != TT || splits < 1 || splits > kMaxSplits || splits > (T_len + TT - 1) / TT)
     return cudaErrorInvalidValue;
   const int HC = (Hq / Hkv + kHeads - 1) / kHeads;
-  const size_t smem = smem_bytes<T, D>();
-  cudaError_t err = csm::allow_large_clusters<decode_attention_kernel<T, D>>(kMaxSplits);
+  const size_t smem = smem_bytes<KV, D>();
+  cudaError_t err = csm::allow_large_clusters<decode_attention_kernel<T, KV, D>>(kMaxSplits);
   if (err != cudaSuccess) return err;
-  err = csm::ensure_smem<decode_attention_kernel<T, D>>(smem);
+  err = csm::ensure_smem<decode_attention_kernel<T, KV, D>>(smem);
   if (err != cudaSuccess) return err;
-  return csm::launch_cluster(decode_attention_kernel<T, D>, dim3(splits, Hkv * HC, B), kThreads,
-                             smem, stream, splits, static_cast<const T*>(q),
-                             static_cast<const T*>(k), static_cast<const T*>(v),
-                             static_cast<const bool*>(mask), static_cast<T*>(out), T_len, Hq,
-                             Hkv, mask_bstride, scale);
+  return csm::launch_cluster(decode_attention_kernel<T, KV, D>, dim3(splits, Hkv * HC, B), kThreads, smem, stream, splits,
+                             static_cast<const T*>(q), static_cast<const KV*>(c.k),
+                             static_cast<const KV*>(c.v), static_cast<const float*>(c.ks),
+                             static_cast<const float*>(c.vs), static_cast<const bool*>(mask),
+                             static_cast<T*>(out), T_len, Hq, Hkv, mask_bstride, scale);
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, const void* mask,
-                         void* out, int B, int T_len, int Hq, int Hkv, long long mask_bstride,
-                         float scale, int tile, int splits, cudaStream_t s) {
+template <typename T, typename KV>
+cudaError_t dispatch_dim(int D, const void* q, Cache c, const void* mask, void* out, int B,
+                         int T_len, int Hq, int Hkv, long long mask_bstride, float scale,
+                         int tile, int splits, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
-    case 32: return launch<T, 32>(q, k, v, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
-    case 64: return launch<T, 64>(q, k, v, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
-    case 128: return launch<T, 128>(q, k, v, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
+    case 16: return launch<T, KV, 16>(q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
+    case 32: return launch<T, KV, 32>(q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
+    case 64: return launch<T, KV, 64>(q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
+    case 128: return launch<T, KV, 128>(q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride, scale, tile, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -394,11 +467,31 @@ extern "C" int csm_decode_attention(const void* q, const void* k, const void* v,
                                     int tile, int splits, int dtype, void* stream) {
   if (B < 1 || T_len < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Cache c{k, v, nullptr, nullptr};
   if (dtype == csm::kBFloat16)
-    return (int)dispatch_dim<__nv_bfloat16>(D, q, k, v, mask, out, B, T_len, Hq, Hkv,
-                                            mask_bstride, scale, tile, splits, s);
+    return (int)dispatch_dim<__nv_bfloat16, __nv_bfloat16>(D, q, c, mask, out, B, T_len, Hq, Hkv,
+                                                           mask_bstride, scale, tile, splits, s);
   if (dtype == csm::kFloat32)
-    return (int)dispatch_dim<float>(D, q, k, v, mask, out, B, T_len, Hq, Hkv, mask_bstride,
-                                    scale, tile, splits, s);
+    return (int)dispatch_dim<float, float>(D, q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride,
+                                           scale, tile, splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 form: kq/vq int8 (B, T, Hkv, D), 16-byte aligned; ks/vs float32
+// (B, T, Hkv, 1); q, mask, out and the plan as above, dtype q's.
+extern "C" int csm_decode_attention_int8(const void* q, const void* kq, const void* ks,
+                                         const void* vq, const void* vs, const void* mask,
+                                         void* out, int B, int T_len, int Hq, int Hkv, int D,
+                                         long long mask_bstride, float scale, int tile,
+                                         int splits, int dtype, void* stream) {
+  if (B < 1 || T_len < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Cache c{kq, vq, ks, vs};
+  if (dtype == csm::kBFloat16)
+    return (int)dispatch_dim<__nv_bfloat16, int8_t>(D, q, c, mask, out, B, T_len, Hq, Hkv,
+                                                    mask_bstride, scale, tile, splits, s);
+  if (dtype == csm::kFloat32)
+    return (int)dispatch_dim<float, int8_t>(D, q, c, mask, out, B, T_len, Hq, Hkv, mask_bstride,
+                                            scale, tile, splits, s);
   return (int)cudaErrorInvalidValue;
 }

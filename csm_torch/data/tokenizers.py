@@ -121,3 +121,17 @@ class MimiAudioTokenizer:
         c = torch.from_numpy(buf[None]).to(self.device)
         audio = mimi_mod.mimi_decode(self.params, c, self.cfg)[0]
         return audio[: F * self.cfg.samples_per_frame].float().cpu().numpy()
+
+    def stream_decoder(self):
+        """A stateful streaming decoder (codec/streaming.py): O(chunk)
+        codec work a chunk, the samples of the whole-clip ``decode``."""
+        from csm_torch.codec.streaming import MimiStreamDecoder
+
+        return MimiStreamDecoder(self.params, self.cfg)
+
+    def stream_encoder(self):
+        """A stateful streaming encoder (live audio in): chunks of a
+        multiple of 1920 samples give the whole-clip ``encode``'s codes."""
+        from csm_torch.codec.streaming import MimiStreamEncoder
+
+        return MimiStreamEncoder(self.params, self.cfg, num_quantizers=self.num_quantizers)

@@ -5,17 +5,19 @@ The counterpart of the JAX package's ``generator.py``: random weights or a
 checkpoint (a torchtune ``ckpt.pt`` or ``.safetensors``, a training
 checkpoint directory, a Mimi file), the quantized modes and the 8B flavor.
 Branches that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP.md item instead of being ignored: device meshes (A.11), LoRA
-adapters (A.10b) and streaming generation (A.9, A.14).  A ``watermarker``
-callable is applied to each waveform when one is given; ``load_csm`` gives
-none by default, and ``csm-torch-generate`` gives one unless told not to.
+their ROADMAP.md item instead of being ignored: device meshes (A.11) and
+LoRA adapters (A.10b).  A ``watermarker`` callable is applied to each
+waveform when one is given; ``load_csm`` gives none by default, and
+``csm-torch-generate`` gives one unless told not to.  ``generate_streaming``
+yields audio chunk by chunk through a one-slot ``BatchedServer`` and the
+streaming codec (codec/streaming.py), without the watermark.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +105,8 @@ class Generator:
         # prefill frame and the frame step as CUDA-graph replays, captured
         # once per key and kept here
         self.graphs = GraphCache()
+        # generate_streaming's one-slot servers, by (chunk_frames, topk, window)
+        self._stream_servers: dict = {}
         self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.params = fuse_csm_params(params)
@@ -116,9 +120,13 @@ class Generator:
         self.last_stats: dict = {}
 
     def close(self) -> None:
-        """Free the captured graphs, their pools and static buffers, and the
-        weights: the card's memory for the next model."""
+        """Free the captured graphs, their pools and static buffers, the
+        streaming servers, and the weights: the card's memory for the next
+        model."""
         self.graphs.clear()
+        for server in self._stream_servers.values():
+            server.close()
+        self._stream_servers.clear()
         self.params = None
 
     # ---- prompt assembly ----
@@ -160,8 +168,88 @@ class Generator:
             temperature=temperature, topk=topk, seed=seed,
         )[0]
 
-    def generate_streaming(self, *args, **kwargs):
-        raise _waits("streaming generation", "A.9 and A.14")
+    def _streaming_server(self, chunk_frames: int, topk: int, window: Optional[int]):
+        """The one-slot server of ``generate_streaming``, made on first use
+        per (chunk_frames, topk, window) and kept: its graphs are captured
+        once.  Its KV cache takes the Generator's dtype."""
+        key = (chunk_frames, topk, window)
+        if key not in self._stream_servers:
+            from csm_torch.serving import BatchedServer  # serving imports this module
+
+            self._stream_servers[key] = BatchedServer(
+                self.params, self.args, n_slots=1, max_seq_len=self.max_seq_len, topk=topk,
+                compute_dtype=self.compute_dtype, chunk_size=chunk_frames,
+                kv_dtype="int8" if self.kv_dtype == torch.int8 else "bf16", window=window,
+                device=self.device)
+        return self._stream_servers[key]
+
+    @torch.inference_mode()
+    def generate_streaming(
+        self,
+        text: str,
+        speaker: int = 0,
+        context: Optional[List[Segment]] = None,
+        max_audio_length_ms: float = 90_000,
+        temperature: float = 0.9,
+        topk: int = 50,
+        seed: int = 0,
+        chunk_frames: int = 13,
+        window: Optional[int] = None,
+    ) -> Iterator[Tuple[np.ndarray, bool]]:
+        """Yield (float32 audio at 24 kHz, done) about every ``chunk_frames``
+        frames (80 ms each) of audio; exactly one item has done=True, the
+        last, possibly empty.
+
+        The frames come from a one-slot ``BatchedServer`` (its CUDA graphs
+        on a card) in chunks of ``chunk_frames``; each chunk's new frames go
+        through the streaming codec, which carries its state, so a chunk
+        costs the same however long the stream runs.  The last chunk's
+        frames are padded to ``chunk_frames`` (one codec shape) and its
+        samples cut back.  First audio ≈ the prefill + ``chunk_frames``
+        frames + one codec step.  ``window``: a sliding-window cache of that
+        many columns, for streams of any length (the prompt-length contract
+        is waived).  The watermark is not applied (it works on whole
+        utterances): watermark the concatenation."""
+        from csm_torch.serving import StreamRequest
+
+        tokens, mask = self._build_prompt(text, speaker, context or [])
+        max_frames = int(max_audio_length_ms / MS_PER_FRAME)
+        if window is None:
+            limit = self.max_seq_len - max_frames
+            if tokens.shape[0] >= limit:
+                raise ValueError(f"prompt too long: {tokens.shape[0]} >= {limit} "
+                                 f"({self.max_seq_len} - {max_frames} audio frames)")
+        if self.mimi is None:
+            raise ValueError("streaming decode requires a Mimi tokenizer")
+        server = self._streaming_server(chunk_frames, topk, window)
+        server.reset(seed)
+        server.temperature = temperature
+        server.submit(StreamRequest(tokens, mask, max_frames=max_frames))
+        decoder = self.mimi.stream_decoder()
+        spf = decoder.cfg.samples_per_frame
+
+        def decode(new: np.ndarray, pad_to: Optional[int] = None) -> np.ndarray:
+            n = new.shape[0]
+            if pad_to is not None and n < pad_to:  # the last chunk only: its state is dropped
+                new = np.concatenate([new, np.zeros((pad_to - n, new.shape[1]), new.dtype)])
+            return decoder.decode_chunk(new.T)[: n * spf]
+
+        decoded = 0  # frames through the codec
+        result = None
+        done_yielded = False
+        while result is None:
+            finished = server.step()
+            if finished:
+                result = finished[0]
+            done = result is not None
+            new = result.frames[decoded:] if done else server.slot_frames[0][decoded:]
+            if len(new) == 0:
+                continue  # EOS can land on a step that adds no frame
+            decoded += len(new)
+            done_yielded = done
+            yield decode(np.stack(new), pad_to=chunk_frames if done else None), done
+        if not done_yielded:
+            yield np.zeros(0, np.float32), True
 
     @torch.inference_mode()
     def generate_batch(

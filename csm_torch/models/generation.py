@@ -49,7 +49,8 @@ GRAPH_CACHE_SIZE = 8  # keys whose graphs and buffers a GraphCache keeps
 # the wrappers' counters that the frame's kernels move: a replay adds the
 # counts its capture recorded
 _COUNTERS = ((decode_attention, "launches"), (flash_attention, "launches"),
-             (int4_matmul, "launches"), (int4_matmul, "dequant_calls"))
+             (int4_matmul, "launches"), (int4_matmul, "dequant_calls"),
+             (decode_attention, "int8_launches"))
 
 
 def bucket_length(n: int, buckets=PROMPT_BUCKETS) -> int:

@@ -10,15 +10,20 @@ A projection is a float tensor, an int8 dict ``{"w8", "scale"}`` or a
 grouped-int4 dict ``{"w4p", "scale4"}`` (utils/quantize.py); int4 goes
 through ``int4_matmul`` (the fused-dequant kernel at M <= 64).
 
-Attention routing (the same paths the JAX package takes on its TPU):
-  * cached S=1 steps over a float cache → ``decode_gqa_attention`` (the
-    decode kernel);
+Attention routing (the JAX package's paths on its TPU, but for one):
+  * cached S=1 steps → ``decode_gqa_attention`` (the decode kernel); over
+    an int8 (QuantKV) cache its int8 form, which reads the codes and scales
+    and dequantizes in registers.  The JAX package sends an int8 cache's
+    steps to plain attention over the dequantized cache, which XLA fuses
+    into one read; a dense copy here would cost a float32 and a bf16 copy
+    of the layer's cache a step;
   * ``flash_pos`` given (cached prefill of S >= FLASH_MIN_SEQ over the whole
     cache, or the uncached training pass of T >= FLASH_MIN_SEQ) → the flash
     kernels, masked from positions, forward and backward;
-  * everything else (short prefill, the decoder's S=2 call, S=1 steps over
-    an int8 cache) → plain ``gqa_attention`` under the materialized mask.
-An int8 (QuantKV) cache is dequantized for the flash and plain routes.
+  * everything else (short prefill, the decoder's S=2 call) → plain
+    ``gqa_attention`` under the materialized mask.
+An int8 cache is dequantized (one layer's temporary) for the flash and
+plain routes only.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from csm_torch.ops.attention import gqa_attention
 from csm_torch.ops.decode_attention import decode_gqa_attention
 from csm_torch.ops.flash_attention import flash_gqa_attention
 from csm_torch.ops.int4_matmul import int4_matmul
-from csm_torch.ops.kvcache import KVCache, Offset, QuantKV, dequantize_kv, layer_half, update_layer
+from csm_torch.ops.kvcache import KVCache, Offset, dequantize_kv, layer_half, update_layer
 from csm_torch.ops.norms import rms_norm
 from csm_torch.ops.rope import apply_rope, rope_at_positions
 
@@ -133,9 +138,10 @@ def _layer_forward(
 
     decode = False
     if kv_layer is not None:
-        k_cache, v_cache = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
-        k, v = dequantize_kv(k_cache, q.dtype), dequantize_kv(v_cache, q.dtype)
-        decode = S == 1 and not isinstance(k_cache, QuantKV)
+        k, v = update_layer(kv_layer[0], kv_layer[1], k, v, cache_offset)
+        decode = S == 1 and flash_pos is None
+        if not decode:  # the decode kernel reads an int8 cache as it is
+            k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
     if flash_pos is not None:  # q and k leave apply_rope contiguous; v may be a fused slice
         attn = flash_gqa_attention(q, k, v.contiguous(), *flash_pos)
     elif decode:

@@ -67,8 +67,8 @@ def test_voice_presets(voice, speaker, capsys):
         tgenerate.build_parser().parse_args(["--text", "hi", "--speaker", "4"])) == 4
 
 
-@pytest.mark.parametrize("flag,item", [(["--stream"], "A.9 and A.14"),
-                                       (["--lora-path", "adapter"], "A.10b")])
+@pytest.mark.parametrize("flag,item", [pytest.param(["--lora-path", "adapter"], "A.10b",
+                                                    id="flag1-A.10b")])
 def test_flags_of_later_slices_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         tgenerate.main(["--tiny-test", "--device", "cpu", "--text", "hi"] + flag)
@@ -93,6 +93,43 @@ def test_tiny_test_writes_a_wav(tmp_path, monkeypatch, capsys, watermark):
     assert sr == 24_000 and 0 < len(audio) <= 5 * 1920 and np.isfinite(audio).all()
     printed = capsys.readouterr().out
     assert "speaker ID: 6" in printed and "RTF" in printed and "watermark" in printed
+
+
+def _same_pcm(got, want):
+    """Equal 16-bit samples, or one step apart: the streaming codec's float
+    sums differ from the whole clip's in the last bits, and the conversion
+    to 16 bits truncates."""
+    assert got.shape == want.shape and len(got)
+    assert np.abs(got - want).max() <= 1.0001 / 32767
+
+
+@pytest.mark.parametrize("watermark", [False, True])
+def test_generate_stream_writes_the_clip(tmp_path, monkeypatch, capsys, watermark):
+    """--stream: the chunks' arrival lines, a wav equal to the one without
+    --stream at topk=1, and the watermark (a stand-in here) applied once,
+    to the whole clip."""
+    import csm_torch.watermarking as twm
+
+    marked = []
+
+    def fake_watermark(w, audio, sr):
+        marked.append(len(audio))
+        return audio, sr
+
+    monkeypatch.setattr(twm, "watermark", fake_watermark)
+    monkeypatch.setattr(twm, "load_watermarker", lambda *a, **kw: None)
+    argv = ["--tiny-test", "--device", "cpu", "--text", "stream this", "--topk", "1",
+            "--max-audio-length-ms", "640", "--chunk-frames", "2"] + (
+        [] if watermark else ["--no-watermark"])
+    assert tgenerate.main(argv + ["--output", str(tmp_path / "s.wav"), "--stream"]) == 0
+    printed = capsys.readouterr().out
+    assert "first audio: +" in printed and "chunk 1: +" in printed and "RTF" in printed
+    assert tgenerate.main(argv + ["--output", str(tmp_path / "n.wav")]) == 0
+    got, sr = load_wav(str(tmp_path / "s.wav"))
+    want, _ = load_wav(str(tmp_path / "n.wav"))
+    assert sr == 24_000
+    _same_pcm(got, want)
+    assert marked == ([len(got)] * 2 if watermark else [])
 
 
 def test_profile_writes_a_trace(tmp_path):
@@ -154,14 +191,95 @@ def test_serve_writes_one_wav_per_request(tmp_path, capsys, watermark):
 
 
 @pytest.mark.parametrize("flag,item", [
-    pytest.param(["--stream"], "A.9 and A.14", id="flag2-A.9 and A.14"),
-    pytest.param(["--http", "8080", "--stream"], "A.9 and A.14", id="http-stream"),
     pytest.param(["--adapter", "a=dir"], "A.10b", id="flag5-A.10b"),
     pytest.param(["--lora-path", "dir"], "A.10b", id="flag6-A.10b")])
 def test_serve_flags_of_later_slices_raise(tmp_path, flag, item):
     reqs = _requests(tmp_path, [{"id": 0, "text": "hi"}])
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs] + flag)
+
+
+def _served(tmp_path, name, lines, *flags):
+    out = tmp_path / name
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", _requests(tmp_path, lines),
+                        "--output-dir", str(out), "--n-slots", "2", "--chunk-size", "4",
+                        "--topk", "1", "--no-watermark", *flags]) == 0
+    return out
+
+
+STREAM_LINES = [{"id": "a", "text": "hello", "max_audio_length_ms": 400},
+                {"id": "b", "text": "a second one", "speaker": 1, "max_audio_length_ms": 960},
+                {"id": "c", "text": "third", "max_audio_length_ms": 720}]
+
+
+def test_serve_stream_batch_matches_the_server(tmp_path, capsys):
+    """--stream with --requests: each wav, written by its request's sink as
+    it finishes, equals the non-streamed server's; first-audio lines."""
+    plain = _served(tmp_path, "plain", STREAM_LINES)
+    capsys.readouterr()
+    streamed = _served(tmp_path, "streamed", STREAM_LINES, "--stream")
+    printed = capsys.readouterr()
+    for r in STREAM_LINES:
+        _same_pcm(load_wav(str(streamed / f"{r['id']}.wav"))[0],
+                  load_wav(str(plain / f"{r['id']}.wav"))[0])
+        assert f"{r['id']}.wav: " in printed.out
+    assert printed.out.count("first audio +") == 3 and "Served 3 requests" in printed.out
+
+
+class _Lines:
+    """A stand-in for the stdin poller: the given lines, then EOF."""
+
+    def __init__(self, lines):
+        self.batches = [[json.dumps(r) for r in lines]]
+
+    def poll(self):
+        return (self.batches.pop(0) if self.batches else []), True
+
+
+def test_serve_stream_follow_matches_the_server(tmp_path, monkeypatch, capsys):
+    """--stream with --follow (lines from a stand-in for stdin): each wav
+    equals the non-streamed server's; a cancel of a request still waiting
+    for a slot closes and releases its sink."""
+    plain = _served(tmp_path, "plain", STREAM_LINES)
+    lines = STREAM_LINES + [{"id": "d", "text": "never admitted"}, {"cancel": "d"}]
+    monkeypatch.setattr(tserve, "_StdinPoller", lambda: _Lines(lines))
+    out = tmp_path / "followed"
+    capsys.readouterr()
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", "-", "--follow",
+                        "--output-dir", str(out), "--n-slots", "2", "--chunk-size", "4",
+                        "--topk", "1", "--no-watermark", "--stream"]) == 0
+    printed = capsys.readouterr()
+    for r in STREAM_LINES:
+        _same_pcm(load_wav(str(out / f"{r['id']}.wav"))[0], load_wav(str(plain / f"{r['id']}.wav"))[0])
+    assert printed.out.count("first audio +") == 3 and "Served 3 requests" in printed.out
+    assert "cancelled 'd' (not yet admitted)" in printed.err
+    assert len(load_wav(str(out / "d.wav"))[0]) == 0  # its sink closed, empty
+
+
+def test_follow_releases_the_sink_of_a_request_dropped_at_submit(monkeypatch):
+    """A request refused at submit (e.g. its prefix went while it waited)
+    has its sink closed (done, no frames) and released."""
+    closed, released = [], []
+
+    class Refusing:
+        active = np.zeros(1, bool)
+
+        def submit(self, sr):
+            raise ValueError("unknown prefix 'gone'")
+
+        def step(self):
+            return []
+
+    class Req:
+        request_id = "x"
+
+        def on_frames(self, rid, new, done):
+            closed.append((rid, new.shape[0], done))
+
+    monkeypatch.setattr(tserve, "_StdinPoller", lambda: _Lines([{"id": "x", "text": "hi"}]))
+    served = tserve._serve_follow(Refusing(), lambda i, r: Req(), None, None,
+                                  attach_sink=lambda sr, t: None, drop_sink=released.append)
+    assert served[0] == 0 and closed == [("x", 0, True)] and released == ["x"]
 
 
 # ---------------------------------------------------------------- prefixes, windows, daemons
@@ -347,6 +465,47 @@ def test_serve_http_endpoint(tmp_path):
         stdout = proc.communicate(timeout=120)[0]
         assert proc.returncode == 0, stdout
         assert "HTTP served 3 requests" in stdout, stdout
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def test_serve_http_stream_answers_pcm(tmp_path):
+    """--http --stream: each POST /generate is answered with s16le PCM
+    (audio/L16, close-delimited) whose samples equal the wav of the same
+    request served without streaming; /health counts them."""
+    import threading
+    import urllib.request
+
+    plain = _served(tmp_path, "plain", STREAM_LINES)
+    proc = _serve_proc("--http", "127.0.0.1:0", "--topk", "1", "--chunk-size", "4", "--stream")
+    try:
+        base = f"http://127.0.0.1:{_port_of(proc)}"
+        results = {}
+
+        def post(r):
+            body = {k: v for k, v in r.items() if k != "id"}
+            req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                results[r["id"]] = (resp.headers["Content-Type"], resp.read())
+
+        threads = [threading.Thread(target=post, args=(r,)) for r in STREAM_LINES]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for r in STREAM_LINES:
+            ctype, pcm = results[r["id"]]
+            assert ctype == "audio/L16;rate=24000;channels=1"
+            got = np.frombuffer(pcm, "<i2").astype(np.int64)
+            want = np.round(load_wav(str(plain / f"{r['id']}.wav"))[0] * 32768).astype(np.int64)
+            assert got.shape == want.shape and np.abs(got - want).max() <= 1  # one 16-bit step
+        health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
+        assert health["served"] == 3
+        urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
+        stdout = proc.communicate(timeout=120)[0]
+        assert proc.returncode == 0 and "HTTP served 3 requests" in stdout, stdout
+        assert "skipping the watermark" not in stdout  # --no-watermark: nothing to skip
     finally:
         if proc.poll() is None:
             proc.kill()

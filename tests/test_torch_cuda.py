@@ -171,6 +171,88 @@ def test_decode_kernel_is_deterministic_and_replays_in_a_graph(cuda, T, pattern)
     assert tdec.launches == n + 1 and torch.equal(out, a)
 
 
+def int8_decode_mask(pattern, B, T, seed=0):
+    """Masks (B, 1, T) of the int8 cache's main paths, beside
+    ``decode_pattern_mask``'s:
+
+      serving  a serving batch: rows live up to 48-111 keys of the cache,
+               the last row dead;
+      ring     a full sliding-window ring (anchor T - 256): row b's prompt
+               of 1000 - 9·b positions, its latest 256 frames wrapped over
+               the ring (positions out of column order), rows 0 and 2
+               re-anchored (negative positions), the last row dead."""
+    rng = np.random.default_rng(seed)
+    if pattern == "serving":
+        mask = np.arange(T)[None, None, :] < rng.integers(48, 112, B)[:, None, None]
+        mask[-1] = False
+        return mask
+    if pattern != "ring":
+        return decode_pattern_mask(pattern, B, T)
+    anchor = T - 256
+    kv_pos = np.full((B, T), PAD, np.int64)
+    q_pos = np.zeros(B, np.int64)
+    for b in range(B):
+        prompt, frames, delta = 1000 - 9 * b, 300 + 97 * b, 1100 if b in (0, 2) else 0
+        kv_pos[b, :prompt] = np.arange(prompt) - delta
+        t = np.arange(frames - 256, frames)
+        kv_pos[b, anchor + t % 256] = prompt + t - delta
+        q_pos[b] = prompt + frames - 1 - delta
+    mask = (kv_pos <= q_pos[:, None])[:, None]
+    mask[-1] = False
+    return mask
+
+
+# (B, Hq, Hkv, D, T, mask pattern) of an int8 cache: generation at T=89,
+# serving's ragged batch of 8, the 1280-column ring, the decoder's and the
+# small head dims
+INT8_CASES = [(1, 32, 8, 64, 89, "full"), (8, 32, 8, 64, 1024, "serving"),
+              (8, 32, 8, 64, 1280, "ring"), (2, 32, 8, 64, 1189, "live89"),
+              (2, 8, 2, 128, 32, "causal"), (2, 4, 2, 16, 70, "causal")]
+
+
+def _int8_case(B, Hq, Hkv, D, T, pattern, dev, dtype, seed=0):
+    from csm_torch.ops.kvcache import quantize_kv_rows
+
+    q, k, v, _ = _decode_inputs(B, Hq, Hkv, D, T, seed)
+    kq, vq = (quantize_kv_rows(torch.from_numpy(x).to(dev)) for x in (k, v))
+    mask = torch.from_numpy(int8_decode_mask(pattern, B, T, seed)).to(dev)
+    return torch.from_numpy(q).to(dev, dtype), kq, vq, mask
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-4, 2**-7)])
+@pytest.mark.parametrize("B,Hq,Hkv,D,T,pattern", INT8_CASES)
+def test_decode_int8_kernel_matches_plain(cuda, dtype, atol, rtol, B, Hq, Hkv, D, T, pattern):
+    """The int8 form against ``decode_attention_int8_plain`` (the cache
+    dequantized to q's dtype, then the plain attention), with the float
+    form's tolerances: both dequantize each element to the same value and
+    differ only in the order of their float32 sums.  It counts apart from
+    the float form."""
+    q, kq, vq, mask = _int8_case(B, Hq, Hkv, D, T, pattern, cuda, dtype)
+    n, n8 = tdec.launches, tdec.int8_launches
+    got = tdec.decode_gqa_attention(q, kq, vq, mask)
+    torch.cuda.synchronize()
+    assert (tdec.launches, tdec.int8_launches) == (n, n8 + 1)
+    want = tdec.decode_attention_int8_plain(q, kq.q, kq.s, vq.q, vq.s, mask)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    dead = ~mask.expand(B, 1, T)[:, 0].any(-1)
+    assert not got[dead].any()
+
+
+def test_decode_int8_kernel_is_deterministic_and_replays_in_a_graph(cuda):
+    q, kq, vq, mask = _int8_case(8, 32, 8, 64, 1280, "ring", cuda, torch.bfloat16)
+    a = tdec.decode_gqa_attention(q, kq, vq, mask)
+    b = tdec.decode_gqa_attention(q, kq, vq, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.decode_gqa_attention(q, kq, vq, mask)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,lens,Hq,Hkv,D", [(256, (200, 0), 32, 8, 64), (300, (131,), 4, 2, 16),
                                              (64, (64,), 8, 2, 128)])
@@ -654,9 +736,9 @@ def test_replays_add_the_captured_launch_counts(cuda):
     (_, prefill), (_, step) = fg.graphs
     K, L_bb, L_dec = args.audio_num_codebooks, args.backbone.num_layers, args.decoder.num_layers
     int4_frame = 4 * L_bb + 4 * L_dec * (K - 1)  # the 64-row prefill takes the kernel too
-    # counters: decode, flash forward, int4, int4 dequant route
-    assert step == [L_bb + (K - 2) * L_dec, 0, int4_frame, 0]
-    assert prefill == [(K - 2) * L_dec, 0, int4_frame, 0]
+    # counters: decode, flash forward, int4, int4 dequant route, decode's int8 form
+    assert step == [L_bb + (K - 2) * L_dec, 0, int4_frame, 0, 0]
+    assert prefill == [(K - 2) * L_dec, 0, int4_frame, 0, 0]
     before = tgen._counts()
     res = tgen.generate_audio_tokens_jit(params, args, *prompts, graphs=cache, **kw)
     torch.cuda.synchronize()
@@ -741,6 +823,7 @@ def test_server_graphs_match_eager(cuda, mode, pipelined):
     assert counts_g == counts_e and counts_g[0] > 0
     assert counts_g[1] == args.backbone.num_layers  # the one 256-bucket prefill
     assert (counts_g[2] > 0) == (mode == "int4")
+    assert (counts_g[4] > 0) == (mode == "kv_int8")  # the int8 form, inside the step graphs
 
 
 def test_server_compaction_round_trip(cuda):

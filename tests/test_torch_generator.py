@@ -35,10 +35,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class Recording:
-    """Wraps a codec and keeps every code array it is asked to decode."""
+    """Wraps a codec and keeps every code array it is asked to decode, by
+    the whole clip or (``stream_decoded``) by its stream decoders."""
 
     def __init__(self, inner):
-        self.inner, self.decoded = inner, []
+        self.inner, self.decoded, self.stream_decoded = inner, [], []
 
     def encode(self, audio):
         return self.inner.encode(audio)
@@ -46,6 +47,18 @@ class Recording:
     def decode(self, codes):
         self.decoded.append(np.array(codes))
         return self.inner.decode(codes)
+
+    def stream_decoder(self):
+        dec, seen = self.inner.stream_decoder(), self.stream_decoded
+
+        class Stream:
+            cfg = dec.cfg
+
+            def decode_chunk(self, codes):
+                seen.append(np.array(codes))
+                return dec.decode_chunk(codes)
+
+        return Stream()
 
 
 @pytest.fixture(scope="module")
@@ -124,10 +137,67 @@ def test_unported_branches_raise():
     with pytest.raises(ValueError, match="quantize='int8' or 'int4'"):
         tgen.load_csm(args=tconfig.csm_8b_args(), device="cpu")
     g = tgen.load_csm(args=args, device="cpu", text_tokenizer=ByteTokenizer())
-    with pytest.raises(NotImplementedError, match="A.14"):
-        g.generate_streaming("hi")
     with pytest.raises(NotImplementedError, match="A.11"):
         tgen.Generator(g.params, args, device="cpu", mesh=object())
+
+
+def _stream(g, text, **kw):
+    chunks = list(g.generate_streaming(text, **kw))
+    assert chunks and chunks[-1][1] is True  # the last item is the done one
+    assert sum(1 for _, done in chunks if done) == 1  # and the only one
+    assert all(c.dtype == np.float32 for c, _ in chunks)
+    return chunks
+
+
+def test_streaming_matches_generate(pair):
+    """At topk=1 the streamed chunks concatenate to ``generate``'s waveform
+    (the JAX package's test_streaming_matches_batch contract: atol 1e-6 in
+    float32; the streaming codec carries exact state), in at least two
+    non-empty chunks for a 6-frame budget at chunk_frames=2; the one-slot
+    server is kept for the next call, and ``close`` frees it."""
+    _, gt = pair
+    kw = dict(speaker=1, max_audio_length_ms=480, temperature=1.0, topk=1, seed=0)
+    full = gt.generate("stream me", **kw)
+    chunks = _stream(gt, "stream me", chunk_frames=2, **kw)
+    audio = np.concatenate([c for c, _ in chunks])
+    np.testing.assert_allclose(audio, full, atol=1e-6)
+    assert len([c for c, _ in chunks if len(c)]) >= 2
+    again = _stream(gt, "stream me", chunk_frames=2, **kw)
+    np.testing.assert_array_equal(np.concatenate([c for c, _ in again]), audio)
+    assert list(gt._stream_servers) == [(2, 1, None)]
+
+
+def test_streaming_matches_jax_streaming(pair):
+    """The port's stream against the JAX package's ``generate_streaming`` on
+    the same weights at topk=1: every chunk's codes equal, the audio to
+    1e-5."""
+    gj, gt = pair
+    gj.mimi.stream_decoded.clear()
+    gt.mimi.stream_decoded.clear()
+    kw = dict(speaker=0, max_audio_length_ms=640, temperature=1.0, topk=1, seed=0, chunk_frames=3)
+    cj = list(gj.generate_streaming("the same words", **kw))
+    ct = _stream(gt, "the same words", **kw)
+    assert len(gt.mimi.stream_decoded) == len(gj.mimi.stream_decoded) >= 3
+    for a, b in zip(gj.mimi.stream_decoded, gt.mimi.stream_decoded):
+        np.testing.assert_array_equal(b, a)
+    assert [d for _, d in ct] == [d for _, d in cj]
+    np.testing.assert_allclose(np.concatenate([c for c, _ in ct]),
+                               np.concatenate([np.asarray(c) for c, _ in cj]), atol=1e-5)
+
+
+def test_streaming_window_waives_the_prompt_contract(pair):
+    """``window=``: a stream longer than the cache (64-frame bucket + 72
+    frames > 128 columns) runs on a sliding-window server; without the
+    window the same budget is refused (by the server: the prompt itself
+    is short)."""
+    _, gt = pair
+    kw = dict(max_audio_length_ms=72 * 80, temperature=1.0, topk=1, chunk_frames=8)
+    with pytest.raises(ValueError, match="exceeds max_seq_len 128"):
+        next(gt.generate_streaming("a long stream", **kw))
+    chunks = _stream(gt, "a long stream", window=96, **kw)
+    n = sum(len(c) for c, _ in chunks)
+    assert n % 1920 == 0 and 0 < n <= 72 * 1920
+    assert (8, 1, 96) in gt._stream_servers
 
 
 ISOLATION = """
