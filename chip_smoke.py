@@ -104,6 +104,16 @@ is wrong:
      frames; ``--stream`` serving (a streaming Mimi decoder a request on
      the serving thread) at 8 and 64 slots beside the same server without
      it (frames/s, first audio per stream);
+  4f. multi-LoRA serving at CSM-1B width, 8 slots, phase 4c's protocol, a
+     bank of four adapters (two r=8 on q/v, one r=16 on all seven
+     projections, one decoder-only; requests over ids 0-4): in float32
+     (TF32 off, topk=1) each stream against a single-stream generate on its
+     adapter's merged weights (equal, or parting on a tie); in bf16 frames/s
+     and peak memory beside the same server without a bank, launches held;
+     during traffic a same-shape remove + add takes no capture and leaves
+     the streams' codes, removing an adapter in use raises, a larger rank
+     retakes the captures (counted, timed); the bank over int4 weights
+     (``--adapter`` and ``POST /adapters`` run in phase 4d's daemon);
   5. a tiny float32 model, with float and with int4 weights, generates on
      the card and on the CPU (where the wrappers run the plain versions):
      codes equal, audio close;
@@ -114,10 +124,23 @@ is wrong:
      backward kernel per step (16 forward per eval step), finite losses that
      fall on the repeated batch, ms per step, trained frames/s, peak memory
      and one profiled step;
+  6b. LoRA training at CSM-1B width on phase 6's setup: r=8 on q/v, r=16 on
+     all seven projections, q/v over an int8 and over an int4 base, six
+     steps and a validate each (flash launches held, the dequant route's
+     over int4; the loss falls, the base stays), ms per step, trained
+     frames/s, peak memory (the quantized bases' under the bf16 base's),
+     trainable parameters; one float32 LoRA step of a tiny model card
+     against CPU;
   7. ``CSMTrainer.train`` at tiny width on the card (epochs, validation,
      checkpoints, resume from ``latest``) and the ``csm-torch-train`` CLI
      (``python -m csm_torch.cli.train --tiny-test``) on two synthetic
      recordings;
+  7b. the user's LoRA path: ``csm-torch-finetune-lora`` in process for two
+     steps at CSM-1B (``--save-mode both --async-checkpointing``), then
+     ``load_csm(lora_path=...)`` in float32 and ``csm-torch-generate
+     --lora-path`` in bf16, codes equal to a Generator on the in-memory
+     ``merge_lora`` at topk=1; a two-speaker ``csm-torch-finetune-lora-multi``
+     at tiny width;
   8. one train step of a tiny float32 model at T=256 (through the backward
      kernels) on the card and on the CPU from the same weights, batch and
      frame scores: loss and gradients agree;
@@ -2244,6 +2267,201 @@ def phase_serving(details):
     return total
 
 
+# ---------------------------------------------------------------- phase 4f
+
+
+# The bank of phase 4f: two r=8 adapters on q/v (the defaults), one r=16 on
+# all seven projections, one on the decoder only; requests spread over ids
+# 0 (the base model) to 4.  B is drawn N(0, BANK_B_STD^2): a trained
+# adapter's B is not zero, and at this size its delta moves the codes.
+ALL7 = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+BANK = {"qv_a": dict(r=8), "qv_b": dict(r=8), "all7": dict(r=16, target_modules=ALL7),
+        "dec": dict(r=8, apply_to_backbone=False)}
+BANK_B_STD = 0.02
+
+
+def random_adapter(args, seed, device="cuda", **cfg):
+    """(adapter tree, LoRAConfig): A from the init, B ~ N(0, BANK_B_STD^2)."""
+    import torch
+
+    from csm_torch.training import lora as lora_mod
+
+    lcfg = lora_mod.LoRAConfig(**cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = lora_mod.init_lora_params(gen, args, lcfg, device=device)
+    for comp in lo.values():
+        for ad in comp.values():
+            ad["b"].normal_(0.0, BANK_B_STD, generator=gen)
+    return lo, lcfg
+
+
+def spread(reqs, names):
+    """Each request's adapter, round the names (None: the base model)."""
+    for i, r in enumerate(reqs):
+        r.adapter = names[i % len(names)]
+    return reqs
+
+
+def phase_bank(details):
+    """Multi-LoRA serving at CSM-1B width on random weights of seed 0, 8
+    slots, phase 4c's protocol, a bank of four adapters (``BANK``).
+    Float32 (TF32 off, topk=1): 10 streams over ids 0-4 served together,
+    each against a single-stream generate on its adapter's merged weights
+    (equal, or parting on a tie, held as phase 4c holds them).  bf16: the
+    server without a bank, then with it (requests over ids 0-4), each run
+    twice in a launch-count window, frames/s, per stream and peak memory.
+    Then, during traffic on the pipelined bank server: ``remove_adapter`` of
+    an unused adapter and an ``add_adapter`` into its id keep the bank's
+    shapes (no capture, the streams in flight keep their codes), removing
+    an adapter in use raises, and an adapter of a larger rank retakes the
+    captures (counted and timed) and serves.  Last, the bank over int4
+    weights, where the int4 kernel and decode run under it.  Returns the
+    launches summed over the windows."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from csm_torch import csm_1b_args
+    from csm_torch.serving import BatchedServer
+    from csm_torch.training import lora as lora_mod
+    from csm_torch.utils.params import cast_params, random_csm_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = csm_1b_args()
+    names = [None] + list(BANK)
+    adapters = {n: random_adapter(args, 100 + i, **c) for i, (n, c) in enumerate(BANK.items())}
+    bank = {n: (lo, c, None) for n, (lo, c) in adapters.items()}
+    rec = details["bank"] = {}
+    total = dict.fromkeys(read_counts(), 0)
+
+    # float32 witnesses
+    params = random_csm_params(args, seed=0, device="cuda")
+    server = BatchedServer(params, args, n_slots=8, max_seq_len=SERVE_MAX_SEQ, temperature=0.9,
+                           topk=1, chunk_size=SERVE_CHUNK, compute_dtype=torch.float32,
+                           adapters=bank)
+    n_frames = 4 * SERVE_CHUNK
+    reqs = spread(serve_requests(args, 10, max_frames=n_frames, seed=3), names)
+    results, _ = server.run(reqs)
+    server.close()
+    del server
+    got = {r.request_id: r.frames for r in results}
+    for name in names:
+        mine = [r for r in reqs if r.adapter == name]
+        p = params if name is None else lora_mod.merge_lora(params, *adapters[name])
+        agree_with_single_stream(f"bank_float32_{name or 'base'}",
+                                 {r.request_id: got[r.request_id] for r in mine},
+                                 {r.request_id: (r.tokens, r.mask) for r in mine}, p, args,
+                                 torch.float32, n_frames, details, hold=True)
+        del p
+    params = cast_params(params, torch.bfloat16)
+
+    def make(with_bank, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(params, args, n_slots=8, max_seq_len=SERVE_MAX_SEQ,
+                               temperature=0.9, topk=50, chunk_size=SERVE_CHUNK,
+                               adapters=bank if with_bank else None, **kw)
+        return server, server.warmup()
+
+    def window(name, server, warmup_s, reqs, needs=("decode_attention",)):
+        by_id, stats, got = served(name, server, reqs, args, needs)
+        for k, v in got.items():
+            total[k] += v
+        return serve_record(name, server, by_id, stats, warmup_s, details,
+                            adapters=sorted(server._adapter_id))
+
+    for name, with_bank in (("bank_none_8", False), ("bank_8", True)):
+        server, warmup_s = make(with_bank)
+        for again in ("", "_again"):
+            r = window(name + again, server, warmup_s,
+                       spread(serve_requests(args, 16), names if with_bank else [None]))
+        rec[name] = {"frames_per_s": [details["serving"][name + a]["frames_per_s"]
+                                      for a in ("", "_again")],
+                     "stream_frames_per_s_median": r["stream_frames_per_s_median"],
+                     "peak_allocated_gib": r["peak_allocated_gib"],
+                     "warmup_s": warmup_s, "captures": server.captures}
+        if with_bank:
+            rec["bank_bytes"] = sum(t.numel() * t.element_size() for sub in server.bank.values()
+                                    if sub for ad in sub.values() for t in ad.values())
+            hot_swap(server, args, rec)
+        server.close()
+        del server
+    none, banked = rec["bank_none_8"], rec["bank_8"]
+    log(f"bank on {details['card']}: frames/s without a bank {none['frames_per_s']}, with the "
+        f"4-adapter bank {banked['frames_per_s']} (bank {rec['bank_bytes'] / 2**20:.1f} MiB); "
+        f"peak {none['peak_allocated_gib']:.2f} / {banked['peak_allocated_gib']:.2f} GiB")
+
+    server, warmup_s = make(True, weight_dtype="int4")
+    r = window("bank_int4_8", server, warmup_s, spread(serve_requests(args, 16), names),
+               needs=("decode_attention", "int4_matmul"))
+    rec["bank_int4_8"] = {"frames_per_s": r["frames_per_s"],
+                          "peak_allocated_gib": r["peak_allocated_gib"]}
+    server.close()
+    del server, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["bank_launches"] = total
+    return total
+
+
+def hot_swap(server, args, rec):
+    """Hot adapter changes during traffic on the bf16 bank server, pipelined:
+    8 streams (ids 0, 1, 3, 4) admitted and a chunk in flight, then the same
+    again with ``qv_b`` (id 2, unused) removed and ``qv_c`` added into its
+    id: no capture, and every stream's codes equal the run without the
+    swap.  Removing ``qv_a`` (in use) raises.  Then ``wide`` (r=64 on q/v: a
+    larger rank, a new id) retakes the captures at their next use; it
+    serves a stream."""
+    import numpy as np
+
+    server.pipelined = True
+    use = [None, "qv_a", "all7", "dec"]
+    runs = []
+    for swap in (False, True):
+        server.reset(0)
+        reqs = spread(serve_requests(args, 8, seed=7), use)
+        for r in reqs:
+            server.submit(r)
+        done = server.step()  # a chunk in flight
+        c0, s0 = server.captures, server.capture_s
+        if swap:
+            server.remove_adapter("qv_b")
+            server.add_adapter("qv_c", (*random_adapter(args, 200, **BANK["qv_b"]), None))
+            try:
+                server.remove_adapter("qv_a")
+            except ValueError as e:
+                if "in use" not in str(e):
+                    raise
+            else:
+                raise AssertionError("remove_adapter of an adapter in use did not raise")
+        done += server.run([])[0]
+        runs.append({r.request_id: r.frames for r in done})
+        if swap and server.captures != c0:
+            raise AssertionError(f"a same-shape swap took {server.captures - c0} captures")
+    for rid, f in runs[0].items():
+        if not np.array_equal(runs[1][rid], f):
+            raise AssertionError(f"request {rid}'s codes changed under the in-place swap")
+    c0, s0 = server.captures, server.capture_s
+    wide = random_adapter(args, 201, r=64)
+    server.add_adapter("wide", (*wide, None))
+    server.reset(0)
+    res, _ = server.run(spread(serve_requests(args, 8, seed=8), ["wide", None, "qv_c", "all7"]))
+    if len(res) != 8 or not all(len(r.frames) for r in res):
+        raise AssertionError("the bank after the reshape did not serve")
+    rec["hot_swap"] = {"same_shape_captures": 0, "streams_equal": len(runs[0]),
+                       "reshape_captures": server.captures - c0,
+                       "reshape_capture_s": server.capture_s - s0,
+                       "wide_rank_wqkv": int(server.bank["backbone"]["wqkv"]["a"].shape[-1])}
+    log(f"  hot swap during traffic: remove + add of the same shape took 0 captures, the 8 "
+        f"streams in flight kept their codes; removing an adapter in use raised; a rank-64 "
+        f"adapter retook {rec['hot_swap']['reshape_captures']} captures in "
+        f"{rec['hot_swap']['reshape_capture_s']:.2f} s and served")
+    server.pipelined = False
+
+
 # ---------------------------------------------------------------- phase 4d
 
 
@@ -2593,10 +2811,13 @@ def serve_cmd(*argv):
 def daemons(details):
     """``csm-torch-serve`` at CSM-1B width (random weights) as two
     subprocesses started together: ``--http 127.0.0.1:0 --warmup`` with a
-    preset, answering 8 concurrent POST /generate (4 naming the preset), each
-    a watermarked wav of its 20 frames, then GET /health and POST /shutdown
-    (exit 0); and ``--follow`` fed JSONL over a pipe in two writes, each wav
-    written as its request ends, exit 0 at EOF."""
+    preset and a LoRA adapter (``--adapter spk=DIR``), answering 8
+    concurrent POST /generate (4 naming the preset), each a watermarked wav
+    of its 20 frames, then POST /adapters loading a second adapter, one POST
+    /generate under each adapter, GET /health (both adapters listed), POST
+    /adapters unloading the second and POST /shutdown (exit 0); and
+    ``--follow`` fed JSONL over a pipe in two writes, each wav written as
+    its request ends, exit 0 at EOF."""
     import io
     import re
     import tempfile
@@ -2604,12 +2825,19 @@ def daemons(details):
     import urllib.request
     import wave
 
+    from csm_torch import csm_1b_args
+    from csm_torch.training import lora as lora_mod
+
     frames = 20
     with tempfile.TemporaryDirectory() as d:
         preset = write_preset(d)
+        args = csm_1b_args()
+        spk = [lora_mod.save_lora(str(Path(d) / f"spk{i}"), *random_adapter(args, 300 + i, r=8),
+                                  args) for i in range(2)]
         t0 = time.perf_counter()
         http = subprocess.Popen(serve_cmd("--http", "127.0.0.1:0", "--warmup", "--max-seq-len", "512",
-                                          "--prefix", f"voice={preset}"),
+                                          "--prefix", f"voice={preset}", "--adapter",
+                                          f"spk={spk[0]}"),
                                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         follow = subprocess.Popen(serve_cmd("--requests", "-", "--follow", "--output-dir", d,
                                             "--max-seq-len", "256", "--no-watermark"),
@@ -2639,10 +2867,12 @@ def daemons(details):
             base = f"http://127.0.0.1:{port['n']}"
             answers = {}
 
-            def post(i):
+            def post(i, adapter=None):
                 body = {"text": f"Request {i} to the card.", "max_audio_length_ms": 80 * frames}
                 if i % 2:
                     body["prefix"] = "voice"
+                if adapter is not None:
+                    body["adapter"] = adapter
                 req = urllib.request.Request(base + "/generate", data=json.dumps(body).encode())
                 with urllib.request.urlopen(req, timeout=300) as r:
                     answers[i] = (r.status, r.headers["Content-Type"], int(r.headers["X-Frames"]),
@@ -2662,9 +2892,26 @@ def daemons(details):
                 with wave.open(io.BytesIO(wav)) as w:
                     if w.getframerate() != 24_000 or round(w.getnframes() / 1920) != frames:
                         raise AssertionError(f"daemon: POST {i} gave {w.getnframes()} samples")
+            def adapters(body):
+                req = urllib.request.Request(base + "/adapters", data=json.dumps(body).encode())
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    return json.loads(r.read())
+
+            loaded = adapters({"name": "spk2", "path": spk[1]})
+            if loaded != {"status": "loaded", "name": "spk2", "id": 2}:
+                raise AssertionError(f"daemon: POST /adapters answered {loaded}")
+            for i, name in ((8, "spk"), (10, "spk2")):
+                post(i, name)
+                if answers[i][:3] != (200, "audio/wav", frames):
+                    raise AssertionError(f"daemon: POST under adapter {name} answered "
+                                         f"{answers[i][:3]}")
             health = json.loads(urllib.request.urlopen(base + "/health", timeout=60).read())
-            if health["served"] != 8 or health["prefixes"] != ["voice"]:
+            if (health["served"] != 10 or health["prefixes"] != ["voice"]
+                    or health["adapters"] != ["spk", "spk2"]):
                 raise AssertionError(f"daemon: health {health}")
+            unloaded = adapters({"name": "spk2", "unload": True})
+            if unloaded != {"status": "unloaded", "name": "spk2"}:
+                raise AssertionError(f"daemon: POST /adapters unload answered {unloaded}")
             urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
             http_out = "".join(out) + http.communicate(timeout=300)[0]
             follow.stdin.write("\n".join(lines[4:]) + "\n")
@@ -2674,7 +2921,7 @@ def daemons(details):
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        if http.returncode != 0 or "HTTP served 8 requests" not in http_out:
+        if http.returncode != 0 or "HTTP served 10 requests" not in http_out:
             raise AssertionError(f"daemon: --http exited {http.returncode}:\n{http_out}")
         if follow.returncode != 0 or "Served 8 requests" not in follow_out:
             raise AssertionError(f"daemon: --follow exited {follow.returncode}:\n{follow_out}")
@@ -2685,8 +2932,10 @@ def daemons(details):
             if sr != 24_000 or len(audio) != (10 + i) * 1920:
                 raise AssertionError(f"daemon: --follow wrote {len(audio)} samples for f{i}")
     details["daemons"] = {"http_up_s": up_s, "http_answer_8_s": answer_s, "health": health}
-    log(f"daemons: --http up (weights, warmup, captures) in {up_s:.1f} s, 8 concurrent POSTs "
-        f"answered in {answer_s:.2f} s, /health {health}; --follow wrote 8 wavs, both exited 0")
+    log(f"daemons: --http --adapter up (weights, warmup, captures) in {up_s:.1f} s, 8 concurrent "
+        f"POSTs answered in {answer_s:.2f} s, POST /adapters loaded and unloaded a second "
+        f"adapter, a POST under each adapter answered, /health {health}; --follow wrote 8 wavs, "
+        f"both exited 0")
 
 
 def phase_prefix_window(details):
@@ -3240,22 +3489,11 @@ def phase_training(details, dev):
     import torch
 
     from csm_torch import csm_1b_args
-    from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
-    from csm_torch.data.dataset import CSMDataset, batch_iterator
-    from csm_torch.data.tokenizers import ByteTokenizer, MimiAudioTokenizer
     from csm_torch.training.trainer import CSMTrainer, step_generator
 
     args = csm_1b_args()
     L = args.backbone.num_layers
-    mimi = MimiAudioTokenizer(mimi_init(torch.Generator(device=dev).manual_seed(1),
-                                        CSM_MIMI_CONFIG, device=dev))
-    t0 = time.perf_counter()
-    ds = CSMDataset(synthetic_examples(4, 28.0, seed=0), ByteTokenizer(), mimi, args=args)
-    batches = list(batch_iterator(ds, 2, shuffle=False))
-    details["train_data_s"] = time.perf_counter() - t0
-    if [b.tokens.shape[:2] for b in batches] != [(2, 512)] * 2:
-        raise AssertionError(f"batches {[tuple(b.tokens.shape) for b in batches]}: not (2, 512)")
-    del mimi
+    batches = train_batches(dev, args, details)
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         trainer = CSMTrainer(args=args, output_dir=out, learning_rate=TRAIN_LR, device=dev)
@@ -3312,6 +3550,227 @@ def phase_training(details, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {k: total[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+
+
+# ---------------------------------------------------------------- phase 6b
+
+
+# LoRA runs of phase 6b: r=8 on q/v (the defaults), r=16 on all seven
+# projections, and the q/v run over an int8 and over an int4 base; each base
+# is bf16 (a frozen base keeps no float32 master copy)
+LORA_RUNS = (("lora_qv_r8", {}), ("lora_all7_r16", dict(lora_r=16, target_modules=ALL7)),
+             ("qlora_int8_qv_r8", dict(quant_base="int8")),
+             ("qlora_int4_qv_r8", dict(quant_base="int4")))
+LORA_LR = 1e-3
+
+
+def train_batches(dev, args, details):
+    """Phase 6's two (2, 512) batches: synthetic speech through a random Mimi."""
+    import torch
+
+    from csm_torch.codec.mimi import CSM_MIMI_CONFIG, mimi_init
+    from csm_torch.data.dataset import CSMDataset, batch_iterator
+    from csm_torch.data.tokenizers import ByteTokenizer, MimiAudioTokenizer
+
+    mimi = MimiAudioTokenizer(mimi_init(torch.Generator(device=dev).manual_seed(1),
+                                        CSM_MIMI_CONFIG, device=dev))
+    t0 = time.perf_counter()
+    ds = CSMDataset(synthetic_examples(4, 28.0, seed=0), ByteTokenizer(), mimi, args=args)
+    batches = list(batch_iterator(ds, 2, shuffle=False))
+    details["train_data_s"] = time.perf_counter() - t0
+    if [b.tokens.shape[:2] for b in batches] != [(2, 512)] * 2:
+        raise AssertionError(f"batches {[tuple(b.tokens.shape) for b in batches]}: not (2, 512)")
+    return batches
+
+
+def expected_lora_launches(args, quant, steps=1, eval_steps=0) -> dict:
+    """``expected_train_launches`` of the backbone, and over an int4 base
+    the dequant route of every projection call: B·T and the decoder's
+    n_sub·K rows are over MAX_KERNEL_ROWS; remat runs each layer's forward
+    twice in a step."""
+    L_bb, L_dec = args.backbone.num_layers, args.decoder.num_layers
+    want = expected_train_launches(L_bb, steps, eval_steps)
+    if quant == "int4":
+        want["int4_dequant_route"] = 7 * (L_bb + L_dec) * (2 * steps + eval_steps)
+    return want
+
+
+def phase_lora_training(details, dev):
+    """LoRA training at CSM-1B width on phase 6's setup (B=2 in the 512
+    bucket, bf16 compute, remat, six steps on the repeated batch and a
+    validate): r=8 on q/v, r=16 on all seven projections, then q/v over an
+    int8 and over an int4 base, each through ``CSMLoRATrainer``'s own step
+    call.  Every step's flash launches are held (32 forward, 16 of each
+    backward kernel: the gradient flows through every frozen layer's
+    attention), the loss falls, the base is bit-unchanged.  ms per step,
+    trained frames/s, peak allocated memory over the steps, trainable
+    parameters; the full fine-tune's phase 6 figures beside.  Then one
+    float32 LoRA step of a tiny model on the card against the CPU.  Returns
+    the launches summed over the runs."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from csm_torch import csm_1b_args
+    from csm_torch.training import lora as lora_mod
+    from csm_torch.training.trainer import CSMLoRATrainer, step_generator
+
+    args = csm_1b_args()
+    batch, held_out = train_batches(dev, args, details)
+    runs, total = {}, dict.fromkeys(read_counts(), 0)
+    for name, kw in LORA_RUNS:
+        quant = kw.get("quant_base")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as out:
+            tr = CSMLoRATrainer(args=args, output_dir=out, learning_rate=LORA_LR, device=dev,
+                                param_dtype=torch.bfloat16, **kw)
+            tr.prepare_optimizer()
+            probe = tr.params["backbone"]["wq"]
+            probe = probe["w8"] if quant == "int8" else probe["w4p"] if quant else probe
+            probe0 = probe.clone()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(TRAIN_STEPS):
+                gen = step_generator(dev, 0, i)
+                torch.cuda.synchronize()
+                reset_counts()  # the window opens
+                t0 = time.perf_counter()
+                metrics = tr._run_step(gen, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = read_counts()  # the window closes
+                check_launches(f"{name} step {i}", got, expected_lora_launches(args, quant))
+                for k in total:
+                    total[k] += got[k]
+                m = {k: v.item() for k, v in metrics.items()}
+                if not all(map(math.isfinite, m.values())):
+                    raise AssertionError(f"{name} step {i}: non-finite metrics {m}")
+                steps.append(dict(m, ms=ms, frames_per_s=m["num_target_frames"] / (ms / 1e3)))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not steps[-1]["loss"] < steps[0]["loss"]:
+                raise AssertionError(f"{name}: the loss did not fall on the repeated batch: "
+                                     f"{[s['loss'] for s in steps]}")
+            if not torch.equal(probe, probe0):
+                raise AssertionError(f"{name}: the frozen base moved")
+            reset_counts()
+            val = tr.validate([held_out])
+            check_launches(f"{name} validate", read_counts(),
+                           expected_lora_launches(args, quant, steps=0, eval_steps=1))
+            tail = steps[1:]
+            runs[name] = {
+                "steps": steps, "validation_loss": val, "peak_memory_gib": peak,
+                "trainable_params": lora_mod.count_params(tr.state.params),
+                "base_params": lora_mod.count_params(tr.params),
+                "ms_per_step_median": statistics.median(s["ms"] for s in tail),
+                "frames_per_s_median": statistics.median(s["frames_per_s"] for s in tail),
+                "launches_per_step": expected_lora_launches(args, quant)}
+            r = runs[name]
+            log(f"{name} on {details['card']}: {TRAIN_STEPS} steps, median "
+                f"{r['ms_per_step_median']:.1f} ms/step, {r['frames_per_s_median']:.1f} trained "
+                f"frames/s, peak {peak:.2f} GiB allocated, {r['trainable_params']:,} trainable "
+                f"parameters, loss {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, validation "
+                f"{val:.4f}, launches a step {r['launches_per_step']}")
+            tr.close()
+            del tr, probe, probe0
+    full = details.get("train_1b", {})
+    log(f"  beside them, the full fine-tune of phase 6: "
+        f"{full.get('ms_per_step_median', float('nan')):.1f} ms/step, "
+        f"{full.get('frames_per_s_median', float('nan')):.1f} trained frames/s, peak "
+        f"{full.get('peak_memory_gib', float('nan')):.2f} GiB")
+    base_peak = runs["lora_qv_r8"]["peak_memory_gib"]
+    for name in ("qlora_int8_qv_r8", "qlora_int4_qv_r8"):
+        if not runs[name]["peak_memory_gib"] < base_peak:
+            raise AssertionError(f"{name} peaks at {runs[name]['peak_memory_gib']:.3f} GiB, not "
+                                 f"under the bf16 base's {base_peak:.3f}")
+    details["lora_train_1b"] = runs
+    lora_train_reference(details, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def lora_train_reference(details, dev):
+    """One float32 LoRA step of a tiny model at T=256 (r=4 on all seven
+    projections, dropout 0) on the card and on the CPU from the same
+    weights, adapters, batch and frame scores: the card runs the flash
+    kernels forward and backward through the frozen layers, the CPU their
+    plain versions.  The loss and the adapter gradients agree as phase 8's
+    do; the optimizer update leaves finite adapters."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from csm_torch.models.config import tiny_test_args
+    from csm_torch.training import lora as lora_mod
+    from csm_torch.training.losses import Batch, compute_loss
+    from csm_torch.training.optimizer import global_norm, make_lora_optimizer, named_leaves
+    from csm_torch.training.train_step import _accumulated_grads
+    from csm_torch.utils.params import random_csm_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = tiny_test_args()
+    args = dataclasses.replace(args, backbone_config=dataclasses.replace(
+        args.backbone_config, max_seq_len=512))
+    B, T, K = 2, 256, args.audio_num_codebooks
+    rng = np.random.default_rng(1)
+    tokens = np.zeros((B, T, K + 1), np.int32)
+    mask = np.zeros((B, T, K + 1), bool)
+    tokens[:, :40, K] = rng.integers(1, args.text_vocab_size, (B, 40))
+    mask[:, :40, K] = True
+    audio = rng.integers(0, args.audio_vocab_size, (B, T - 40, K))
+    tokens[:, 40:, :K], mask[:, 40:, :K] = audio, True
+    targets = np.zeros((B, T, K), np.int32)
+    targets[:, 39 : T - 1] = audio
+    tmask = np.zeros((B, T), bool)
+    tmask[:, 39 : T - 1] = True
+    batch = Batch(*map(torch.from_numpy, (tokens, mask, targets, tmask)))
+    scores = torch.from_numpy(rng.random(B * T).astype(np.float32))
+    base0 = random_csm_params(args, seed=0)
+    lcfg = lora_mod.LoRAConfig(r=4, target_modules=ALL7)
+    gen = torch.Generator().manual_seed(2)
+    lora0 = lora_mod.init_lora_params(gen, args, lcfg)
+    for comp in lora0.values():
+        for ad in comp.values():
+            ad["b"].normal_(0.0, 0.05, generator=gen)
+    res = {}
+    for where in ("cpu", dev):
+        base = tree_map(lambda t: t.clone().to(where), base0)
+        lora = tree_map(lambda t: t.clone().to(where), lora0)
+
+        def loss_fn(lo, g, b, s, base=base):
+            return compute_loss(base, args, g, b, compute_dtype=torch.float32, remat=True,
+                                lora=lo, lora_scale=lcfg.scaling, frame_scores=s)
+
+        reset_counts()
+        metrics, grads = _accumulated_grads(loss_fn, lora, None, batch.to(where), 1,
+                                            [scores.to(where)])
+        raw = [g.to("cpu", copy=True) for g in grads]
+        tx = make_lora_optimizer(learning_rate=1e-3)
+        tx.update(lora, grads, tx.init(lora))
+        torch.cuda.synchronize()
+        res[str(where)] = (metrics["loss"].item(), raw, read_counts(),
+                           [t.detach().cpu() for _, t in named_leaves(lora)])
+        if any(t.grad is not None or t.requires_grad for _, t in named_leaves(base)):
+            raise AssertionError("card-vs-CPU LoRA step: the base took a gradient")
+    (l_cpu, g_cpu, _, _), (l_gpu, g_gpu, counts, p_gpu) = res["cpu"], res[str(dev)]
+    check_launches("card-vs-CPU LoRA step", counts, expected_train_launches(2))
+    norm = global_norm(g_cpu).item()
+    err = max((a - b).abs().max().item() for a, b in zip(g_gpu, g_cpu))
+    if abs(l_gpu - l_cpu) > REF_LOSS_RTOL * abs(l_cpu) or err > REF_GRAD_SHARE * norm:
+        raise AssertionError(f"card-vs-CPU LoRA step: loss {l_gpu} vs {l_cpu}, max gradient "
+                             f"difference {err:.3e} against {REF_GRAD_SHARE} x norm {norm:.3e}")
+    if not all(torch.isfinite(t).all() for t in p_gpu):
+        raise AssertionError("card-vs-CPU LoRA step: the update gave non-finite adapters")
+    details["lora_train_reference"] = {"loss_cpu": l_cpu, "loss_card": l_gpu, "grad_norm": norm,
+                                       "grad_max_abs_err": err, "launches": counts}
+    log(f"lora_train_reference: loss card {l_gpu:.7f} cpu {l_cpu:.7f}, max adapter gradient "
+        f"difference {err:.3e} ({err / norm:.2e} of the global norm {norm:.3e}), card launches "
+        f"{counts}")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3384,6 +3843,152 @@ def phase_train_tiny(details, dev):
         details["train_cli_s"] = time.perf_counter() - t0
         log(f"train_cli: python -m csm_torch.cli.train --tiny-test ran to its end in "
             f"{details['train_cli_s']:.1f} s ({res.stdout.strip().splitlines()[-1]})")
+
+
+# ---------------------------------------------------------------- phase 7b
+
+
+def write_recordings(d, n, seconds, seed):
+    """``n`` synthetic (wav, txt) pairs in ``d`` for the training CLIs."""
+    import os
+
+    from csm_torch.data.audio import save_wav
+
+    os.makedirs(d, exist_ok=True)
+    for i, ex in enumerate(synthetic_examples(n, seconds, seed=seed)):
+        save_wav(os.path.join(d, f"utt{i}.wav"), ex.audio, 24_000)
+        with open(os.path.join(d, f"utt{i}.txt"), "w") as f:
+            f.write(ex.text)
+    return d
+
+
+def phase_lora_files(details, dev):
+    """The user's LoRA path at CSM-1B width (random base weights of seed 0):
+    ``csm-torch-finetune-lora`` in process for two steps with ``--save-mode
+    both --async-checkpointing``; ``load_csm(lora_path=...)`` in float32
+    (TF32 off), whose codes at topk=1 equal a Generator's on the
+    ``merge_lora``'d weights made in memory; ``csm-torch-generate
+    --lora-path`` in process, in bf16, its codes equal to the in-memory
+    bf16 merge's; then a two-speaker ``csm-torch-finetune-lora-multi`` at
+    tiny width."""
+    import os
+    import tempfile
+
+    import torch
+
+    from csm_torch import csm_1b_args, load_csm
+    from csm_torch.cli import finetune_lora, finetune_lora_multi
+    from csm_torch.cli import generate as cli
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.generator import Generator
+    from csm_torch.training import lora as lora_mod
+    from csm_torch.utils.params import cast_params, random_csm_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = csm_1b_args()
+    rec = details["lora_files"] = {}
+    with tempfile.TemporaryDirectory(prefix="csm_lora_") as tmp:
+        data = write_recordings(os.path.join(tmp, "data"), 4, 6.0, seed=3)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        code = finetune_lora.main(["--audio-dir", data, "--output-dir", out, "--val-split", "0",
+                                   "--epochs", "1", "--batch-size", "2", "--save-mode", "both",
+                                   "--async-checkpointing", "--allow-byte-tokenizer",
+                                   "--learning-rate", str(LORA_LR)])
+        rec["finetune_s"] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"csm-torch-finetune-lora exited {code}")
+        with open(os.path.join(out, "checkpoints", "latest.json")) as f:
+            latest = json.load(f)["latest"]
+        with open(os.path.join(out, "checkpoints", latest, "meta.json")) as f:
+            steps = json.load(f)["global_step"]
+        adapter = os.path.join(out, "adapter_lora")
+        full = os.path.join(out, "adapter_full")
+        if latest != "final" or steps != 2 or not os.path.exists(os.path.join(full, "state.pt")):
+            raise AssertionError(f"finetune: latest {latest!r} at step {steps}, full artifact "
+                                 f"{os.listdir(out)}")
+        rec["full_bytes"] = os.path.getsize(os.path.join(full, "state.pt"))
+        lo, lcfg, largs = lora_mod.load_lora(adapter, "cuda")
+        if largs != args or not any(bool(ad["b"].any()) for c in lo.values() for ad in c.values()):
+            raise AssertionError("finetune: the adapter is not trained or not CSM-1B's")
+        log(f"csm-torch-finetune-lora on {details['card']}: 2 steps at CSM-1B, --save-mode both "
+            f"--async-checkpointing, in {rec['finetune_s']:.1f} s (the merged float32 artifact "
+            f"{rec['full_bytes'] / 1e9:.2f} GB); {lora_mod.count_params(lo):,} adapter "
+            f"parameters")
+
+        def recorded(g):
+            g.mimi = Recording(g.mimi)
+            return g
+
+        # load_csm(lora_path) against the merge made in memory, float32
+        got = recorded(load_csm(args=args, compute_dtype=torch.float32, lora_path=adapter,
+                                text_tokenizer=ByteTokenizer()))
+        got.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+        merged = lora_mod.merge_lora(cast_params(random_csm_params(args, 0, device="cuda"),
+                                                 torch.float32), lo, lcfg)
+        free(got)
+        mem = recorded(Generator(merged, args, mimi=got.mimi.inner,
+                                 text_tokenizer=ByteTokenizer(), compute_dtype=torch.float32))
+        del merged
+        mem.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+        (a,), (b,) = got.mimi.decoded, mem.mimi.decoded
+        if a.shape != b.shape or not (a == b).all():
+            raise AssertionError("load_csm(lora_path) codes differ from the in-memory merge's")
+        free(mem)
+        rec["load_csm_frames"] = int(a.shape[1])
+        log(f"  load_csm(lora_path) float32: codes equal the in-memory merge_lora Generator's "
+            f"over {a.shape[1]} frames at topk=1")
+
+        # csm-torch-generate --lora-path, bf16, against the bf16 merge in memory
+        built, real_build = [], cli.build_generator
+        cli.build_generator = lambda a: built.append(recorded(real_build(a))) or built[-1]
+        wav = os.path.join(tmp, "o.wav")
+        try:
+            if cli.main(["--lora-path", adapter, "--allow-byte-tokenizer", "--no-watermark",
+                         "--topk", "1", "--text", SHORT_TEXT, "--max-audio-length-ms", "2000",
+                         "--output", wav]) != 0:
+                raise AssertionError("csm-torch-generate --lora-path failed")
+        finally:
+            cli.build_generator = real_build
+        (a,) = built[0].mimi.decoded
+        free(built[0])
+        merged = cast_params(lora_mod.merge_lora(
+            cast_params(random_csm_params(args, 0, device="cuda"), torch.bfloat16), lo, lcfg),
+            torch.bfloat16)
+        mem = recorded(Generator(merged, args, mimi=built[0].mimi.inner,
+                                 text_tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16))
+        del merged
+        mem.generate(SHORT_TEXT, max_audio_length_ms=2000, topk=1)
+        (b,) = mem.mimi.decoded
+        free(mem)
+        if a.shape != b.shape or not (a == b).all():
+            raise AssertionError("csm-torch-generate --lora-path codes differ from the "
+                                 "in-memory bf16 merge's")
+        rec["generate_cli_frames"] = int(a.shape[1])
+        log(f"  csm-torch-generate --lora-path bf16: codes equal the in-memory merge's over "
+            f"{a.shape[1]} frames at topk=1")
+
+        # two speakers at tiny width
+        speakers = [{"name": f"s{i}", "speaker_id": i,
+                     "audio_dir": write_recordings(os.path.join(tmp, f"spk{i}"), 2, 1.5, 10 + i),
+                     "transcript_dir": os.path.join(tmp, f"spk{i}")} for i in range(2)]
+        cfg = os.path.join(tmp, "speakers.json")
+        with open(cfg, "w") as f:
+            json.dump(speakers, f)
+        multi = os.path.join(tmp, "multi")
+        t0 = time.perf_counter()
+        if finetune_lora_multi.main(["--speakers-config", cfg, "--tiny-test", "--output-dir",
+                                     multi, "--val-split", "0"]) != 0:
+            raise AssertionError("csm-torch-finetune-lora-multi failed")
+        with open(os.path.join(multi, "summary.json")) as f:
+            summary = json.load(f)
+        if [e["name"] for e in summary] != ["s0", "s1"] or not all(
+                math.isfinite(e["final_loss"]) for e in summary):
+            raise AssertionError(f"finetune-lora-multi summary {summary}")
+        rec["multi_s"] = time.perf_counter() - t0
+        log(f"  csm-torch-finetune-lora-multi --tiny-test: 2 speakers in {rec['multi_s']:.1f} s, "
+            f"final losses {[round(e['final_loss'], 4) for e in summary]}")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3547,10 +4152,13 @@ def main() -> int:
         serving = timed("4c", phase_serving, details)
         windowed = timed("4d", phase_prefix_window, details)
         streaming = timed("4e", phase_streaming, details)
+        bank = timed("4f", phase_bank, details)
         launches.update(timed("4q", phase_quantized, details))
         timed("5", phase_reference, details)
         launches.update(timed("6", phase_training, details, dev))
+        lora = timed("6b", phase_lora_training, details, dev)
         timed("7", phase_train_tiny, details, dev)
+        timed("7b", phase_lora_files, details, dev)
         timed("8", phase_train_reference, details, dev)
         launches["matvec"] = timed("9", phase_matvec_probe, details)
         for k in kernels:
@@ -3558,6 +4166,8 @@ def main() -> int:
             k["serving_launches"] = serving[k["name"]]
             k["prefix_window_launches"] = windowed[k["name"]]
             k["streaming_launches"] = streaming[k["name"]]
+            k["bank_launches"] = bank[k["name"]]
+            k["lora_train_launches"] = lora[k["name"]]
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

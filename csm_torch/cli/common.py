@@ -104,7 +104,8 @@ def build_generator(args):
     model and codec of ``--tiny-test`` (float32, byte tokenizer), or
     ``load_csm`` of ``--model-path``/``--mimi-path`` (random weights where
     a path is missing) at the ``--flavor``'s shape in bf16, quantized as
-    ``--int4``/``--int8``/``--int8-decoder`` say, with ``--kv-int8``."""
+    ``--int4``/``--int8``/``--int8-decoder`` say, with ``--kv-int8``, and
+    the ``--lora-path`` adapter merged in before the quantization."""
     from csm_torch.data.tokenizers import ByteTokenizer, load_text_tokenizer
     from csm_torch.generator import Generator, load_csm
     from csm_torch.models import config
@@ -112,6 +113,10 @@ def build_generator(args):
     from csm_torch.utils.params import random_csm_params
 
     device = resolve_device(args.device)
+    lora_path = getattr(args, "lora_path", None)
+    if args.tiny_test and lora_path is not None:
+        raise SystemExit("--lora-path needs the model its adapter was trained for: "
+                         "--flavor tiny (random weights or --model-path), not --tiny-test")
     if args.tiny_test:
         margs = config.tiny_test_args()
         return Generator(random_csm_params(margs, seed=0, device=device), margs,
@@ -123,6 +128,6 @@ def build_generator(args):
              else "int8-decoder" if args.int8_decoder else "none")
     return load_csm(
         args.model_path, mimi_path=args.mimi_path, compute_dtype=torch.bfloat16,
-        quantize=qmode, kv_int8=args.kv_int8, args=margs, device=device,
+        quantize=qmode, kv_int8=args.kv_int8, args=margs, device=device, lora_path=lora_path,
         text_tokenizer=load_text_tokenizer(allow_byte_fallback=args.allow_byte_tokenizer or None),
     )

@@ -8,8 +8,9 @@ controls and seed, the quantized modes and the 8B flavor, the watermark
 ``--device`` picks the card (the default) or the CPU; ``--tiny-test`` runs
 a tiny random model and codec.  ``--stream`` generates through
 ``Generator.generate_streaming``, prints each chunk as it arrives and
-watermarks the whole clip at the end; ``--lora-path`` waits for a later
-slice and raises.
+watermarks the whole clip at the end.  ``--lora-path`` merges a LoRA
+adapter directory (``csm-torch-finetune-lora --save-mode lora``) into the
+weights at load.
 
     python -m csm_torch.cli.generate --model-path ckpt.pt --mimi-path model.safetensors \\
         --text "Hello." --output audio.wav
@@ -36,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CSM checkpoint: a torchtune ckpt.pt or .safetensors, or a "
                         "csm-torch-train checkpoint directory (files must be local)")
     p.add_argument("--lora-path", type=str, default=None,
-                   help="LoRA adapter directory (not ported yet: ROADMAP.md A.10b)")
+                   help="LoRA adapter directory (csm-torch-finetune-lora --save-mode lora), "
+                        "merged into the base at load")
     p.add_argument("--mimi-path", type=str, default=None,
                    help="Mimi codec checkpoint (safetensors/pt)")
     p.add_argument("--text", type=str, required=True)
@@ -138,10 +140,6 @@ def stream(args, generator, speaker, context):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from csm_torch.generator import _waits
-
-    if args.lora_path is not None:
-        raise _waits("LoRA adapters (--lora-path)", "A.10b")
     speaker = resolve_speaker(args)
 
     print("Loading model...")

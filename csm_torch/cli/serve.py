@@ -8,12 +8,16 @@ Mimi and watermarked unless ``--no-watermark``.  Three ways in:
   * ``--requests - --follow``: a stdin daemon that admits lines as they
     arrive, writes each wav when its request finishes and exits at EOF once
     everything drains (a line ``{"cancel": ID}`` aborts a request,
-    ``{"register_prefix": {"name", "path"}}`` and ``{"unregister_prefix":
-    NAME}`` change the presets);
+    ``{"register_prefix": {"name", "path"[, "adapter"]}}`` and
+    ``{"unregister_prefix": NAME}`` change the presets,
+    ``{"load_adapter": {"name", "path"}}`` and ``{"unload_adapter": NAME}``
+    the LoRA adapters);
   * ``--http [HOST:]PORT``: ``POST /generate`` (a request line's JSON)
     answers ``audio/wav``, ``GET /health`` and ``GET /metrics`` give the
-    stats, ``POST /prefixes`` changes the presets, ``POST /shutdown``
-    drains and exits; past ``--http-queue`` waiting requests a POST gets
+    stats (``/health`` lists the adapters and prefixes), ``POST /prefixes``
+    and ``POST /adapters`` change the presets and the adapters (``{"name",
+    "path"}`` loads, ``{"name", "unload": true}`` unloads), ``POST
+    /shutdown`` drains and exits; past ``--http-queue`` waiting requests a POST gets
     503 at once.  Only the main thread touches the card: handler threads
     queue their request and wait.
 
@@ -31,12 +35,15 @@ context audio Mimi-encoded and run through the backbone once); a request
 naming it carries only its own text.  ``--window N`` serves sessions of
 any length over an N-column sliding-window cache.  ``--device`` picks the
 card (the default) or the CPU; ``--tiny-test`` runs a tiny random model and
-codec.  ``--adapter`` and ``--lora-path`` wait for a later slice and raise.
+codec.  ``--adapter NAME=PATH`` (repeatable) loads LoRA adapters into the
+server's bank, and a request picks one by name in its ``adapter`` field
+(none: the base model); ``--lora-path`` merges one adapter into the weights
+at load.
 
 Request lines: {"id": str|int, "text": "...", "speaker": 0,
                 "max_audio_length_ms": 10000,
                 "context": [{"audio": "path.wav", "text": "...", "speaker": 1}, ...],
-                "prefix": "voice-a"}
+                "prefix": "voice-a", "adapter": "speaker-a"}
 
     python -m csm_torch.cli.serve --requests reqs.jsonl --output-dir out/ \\
         --model-path ckpt.pt --mimi-path model.safetensors --n-slots 16
@@ -65,9 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "few layers at a time: needs --weight-dtype int8 or int4), or tiny")
     p.add_argument("--mimi-path", type=str, default=None)
     p.add_argument("--adapter", action="append", default=None, metavar="NAME=PATH",
-                   help="multi-LoRA serving (not ported yet: ROADMAP.md A.10b)")
+                   help="Load a LoRA adapter directory under NAME (repeatable): multi-LoRA "
+                        "serving, requests pick one in their 'adapter' field (omitted: the "
+                        "base model); one server serves every speaker's fine-tune")
     p.add_argument("--lora-path", type=str, default=None,
-                   help="LoRA adapter directory (not ported yet: ROADMAP.md A.10b)")
+                   help="LoRA adapter directory merged into the weights at load (serve one "
+                        "fine-tune from the adapter-only artifact)")
     p.add_argument("--prefix", action="append", default=None, metavar="NAME=FILE.json",
                    help="Register a shared context prefix (repeatable): FILE.json holds "
                         "{\"context\": [{audio, text, speaker}, ...]} (or a bare list), run "
@@ -102,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "everything drains")
     p.add_argument("--http", type=str, default=None, metavar="[HOST:]PORT",
                    help="HTTP daemon: POST /generate (a request line's JSON) answers audio/wav; "
-                        "GET /health, GET /metrics, POST /prefixes, POST /shutdown. Default host "
+                        "GET /health, GET /metrics, POST /prefixes, POST /adapters, "
+                        "POST /shutdown. Default host "
                         "127.0.0.1; port 0 takes a free one (printed)")
     p.add_argument("--http-queue", type=int, default=64,
                    help="Requests waiting for a slot beyond which a POST /generate gets an "
@@ -129,15 +140,30 @@ def load_requests(path: str) -> list:
             f.close()
 
 
-def _refuse_unported(args) -> None:
-    from csm_torch.generator import _waits
+def parse_adapters(specs):
+    """``--adapter`` NAME=PATH specs → {name: path}; None when a spec has
+    no '='."""
+    out = {}
+    for spec in specs or ():
+        if "=" not in spec:
+            return None
+        name, path = spec.split("=", 1)
+        out[name] = path
+    return out
 
-    for flag, what, item in (
-        (args.adapter, "multi-LoRA serving (--adapter)", "A.10b"),
-        (args.lora_path is not None, "LoRA adapters (--lora-path)", "A.10b"),
-    ):
-        if flag:
-            raise _waits(what, item)
+
+def _adapter_op(server, kind, spec, register_prefix_file):
+    """A hot change of the adapters or the presets: ``kind`` "adapter" or
+    "prefix", ``spec`` {"name", "path"[, "adapter"]} or {"name", "unload":
+    true}.  Returns the JSON answer."""
+    name = spec["name"]
+    if spec.get("unload"):
+        (server.remove_adapter if kind == "adapter" else server.unregister_prefix)(name)
+        return {"status": "unloaded", "name": name}
+    if kind == "adapter":
+        return {"status": "loaded", "name": name, "id": server.add_adapter(name, spec["path"])}
+    pre = register_prefix_file(name, spec["path"], spec.get("adapter"))
+    return {"status": "loaded", "name": name, "frames": pre.length, "bucket": pre.bucket}
 
 
 class _ChunkedDecodeSink:
@@ -212,8 +238,11 @@ class _HttpStreamSink(_ChunkedDecodeSink):
     memory without waiting (an event marks the copy's end); ``pump``, on
     the main thread, hands the blocks that have landed, in order, to the
     request's handler thread as s16le PCM on ``q``, then None once the
-    request has finished.  The handler thread only writes bytes: it makes
-    no CUDA call, which would fail under a graph captured meanwhile."""
+    request has finished.  The end is passed on by the drive loop's pump,
+    after the step that finished the request has been counted, so a client
+    that has read its whole answer finds it in ``/health``.  The handler
+    thread only writes bytes: it makes no CUDA call, which would fail under
+    a graph captured meanwhile."""
 
     def __init__(self, decoder, chunk: int):
         import queue
@@ -237,7 +266,6 @@ class _HttpStreamSink(_ChunkedDecodeSink):
 
     def _finish(self) -> None:
         self._closed = True
-        self.pump()
 
     def pump(self) -> bool:
         """Main thread: pass on every block whose copy has landed, in order,
@@ -312,17 +340,18 @@ def _serve_follow(server, to_stream_request, emit_result, register_prefix_file,
                 except ValueError as e:
                     print(f"  bad request line skipped: {e}", file=sys.stderr)
                     continue
-                if isinstance(r, dict) and ("register_prefix" in r or "unregister_prefix" in r):
+                ops = {"register_prefix": ("prefix", False), "unregister_prefix": ("prefix", True),
+                       "load_adapter": ("adapter", False), "unload_adapter": ("adapter", True)}
+                op = next((k for k in ops if isinstance(r, dict) and k in r), None)
+                if op is not None:
+                    kind, unload = ops[op]
                     try:
-                        if "register_prefix" in r:
-                            spec = r["register_prefix"]
-                            register_prefix_file(spec["name"], spec["path"])
-                        else:
-                            server.unregister_prefix(r["unregister_prefix"])
-                            print(f"  prefix {r['unregister_prefix']!r} unregistered",
-                                  file=sys.stderr)
+                        spec = {"name": r[op], "unload": True} if unload else r[op]
+                        ans = _adapter_op(server, kind, spec, register_prefix_file)
+                        print(f"  {kind} {ans['name']!r} {ans['status']}"
+                              + (f" (id {ans['id']})" if "id" in ans else ""), file=sys.stderr)
                     except Exception as e:  # the daemon outlives a bad spec
-                        print(f"  prefix op failed: {e!r}", file=sys.stderr)
+                        print(f"  {kind} op failed: {e!r}", file=sys.stderr)
                     continue
                 if isinstance(r, dict) and "cancel" in r:
                     cid = r["cancel"]
@@ -445,7 +474,7 @@ def _make_http_handler(server, inbox, stop, stats_box, cancel_q=None, sample_rat
                 return self._json_reply(404, {"error": "GET /health or /metrics"})
             self._json_reply(200, {
                 "status": "ok", "n_slots": server.n_slots, "active": int(server.active.sum()),
-                "prefixes": sorted(server._prefixes),
+                "adapters": sorted(server._adapter_id), "prefixes": sorted(server._prefixes),
                 **{k: v for k, v in stats_box.items() if k != "t0"},
             })
 
@@ -453,8 +482,9 @@ def _make_http_handler(server, inbox, stop, stats_box, cancel_q=None, sample_rat
             if self.path == "/shutdown":
                 stop.set()
                 return self._json_reply(200, {"status": "shutting down"})
-            if self.path not in ("/generate", "/prefixes"):
-                return self._json_reply(404, {"error": "POST /generate, /prefixes or /shutdown"})
+            if self.path not in ("/generate", "/prefixes", "/adapters"):
+                return self._json_reply(404, {"error": "POST /generate, /prefixes, /adapters "
+                                                       "or /shutdown"})
             try:
                 req = self._body()
             except OverflowError as e:
@@ -462,11 +492,13 @@ def _make_http_handler(server, inbox, stop, stats_box, cancel_q=None, sample_rat
             except (ValueError, OSError) as e:
                 return self._json_reply(400, {"error": f"bad request: {e}"})
             done, holder = threading.Event(), {}
-            if self.path == "/prefixes":  # {"name", "path"} registers, {"name", "unload": true} drops
+            if self.path in ("/prefixes", "/adapters"):
+                # {"name", "path"} loads, {"name", "unload": true} unloads: on the main thread
                 if "name" not in req:
                     return self._json_reply(400, {"error": 'body must be {"name", "path"} or '
                                                            '{"name", "unload": true}'})
-                inbox.put((("prefix", req), done, holder))
+                kind = "prefix" if self.path == "/prefixes" else "adapter"
+                inbox.put(((kind, req), done, holder))
                 done.wait()
                 return self._json_reply(400 if "error" in holder else 200,
                                         holder.get("json", holder))
@@ -541,7 +573,8 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
     prev = {s: signal.signal(s, drain) for s in (signal.SIGTERM, signal.SIGINT)}
     bound_host, bound_port = httpd.server_address[:2]
     print(f"Serving on http://{bound_host}:{bound_port} (POST /generate, GET /health, "
-          f"GET /metrics, POST /prefixes, POST /shutdown; SIGTERM drains)", flush=True)
+          f"GET /metrics, POST /prefixes, POST /adapters, POST /shutdown; SIGTERM drains)",
+          flush=True)
     waiters = {}  # request id -> (done event, holder)
     sinks = {}  # request id -> streaming sink whose end has not been passed on
     pending = []
@@ -550,16 +583,9 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
 
     def admit(req, done, holder):
         nonlocal n_seen
-        if isinstance(req, tuple):  # ("prefix", spec)
-            spec = req[1]
+        if isinstance(req, tuple):  # ("prefix" | "adapter", spec)
             try:
-                if spec.get("unload"):
-                    server.unregister_prefix(spec["name"])
-                    holder["json"] = {"status": "unloaded", "name": spec["name"]}
-                else:
-                    pre = register_prefix_file(spec["name"], spec["path"])
-                    holder["json"] = {"status": "loaded", "name": spec["name"],
-                                      "frames": pre.length, "bucket": pre.bucket}
+                holder["json"] = _adapter_op(server, req[0], req[1], register_prefix_file)
             except Exception as e:  # network-facing: the daemon outlives a bad spec
                 holder["error"] = repr(e)
             done.set()
@@ -658,7 +684,10 @@ def _serve_http(address, queue_bound, server, to_stream_request, finish_audio,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    adapters = parse_adapters(args.adapter)
+    if adapters is None:
+        print(f"--adapter must be NAME=PATH, got {args.adapter}", file=sys.stderr)
+        return 2
     raw = []
     if args.http:
         if args.follow or args.requests is not None:
@@ -718,6 +747,12 @@ def main(argv=None) -> int:
                       f"{sorted(server._prefixes)})", file=sys.stderr)
                 return None
             pb = pre.bucket
+        adapter = r.get("adapter")
+        if adapter is not None and adapter not in server._adapter_id:
+            # refused here: a submit that raises in the drive loop drops it later
+            print(f"  skipping {rid}: unknown adapter {adapter!r} (loaded: "
+                  f"{sorted(server._adapter_id)})", file=sys.stderr)
+            return None
         # with a prefix the request's own frames are its extra context and text
         tokens, mask = generator._build_prompt(r["text"], int(r.get("speaker", 0)),
                                                segments(r.get("context", [])))
@@ -741,7 +776,8 @@ def main(argv=None) -> int:
                       f"{args.max_seq_len}", file=sys.stderr)
                 return None
             max_frames = max(1, min(budget, args.max_seq_len - pb - bucket))
-        return StreamRequest(tokens, mask, max_frames=max_frames, request_id=rid, prefix=prefix)
+        return StreamRequest(tokens, mask, max_frames=max_frames, request_id=rid, prefix=prefix,
+                             adapter=adapter)
 
     ramp_chunk = args.ramp_chunk
     if ramp_chunk is None and (args.stream or args.http) and args.chunk_size > 2:
@@ -751,19 +787,20 @@ def main(argv=None) -> int:
         temperature=args.temperature, topk=args.topk, compute_dtype=generator.compute_dtype,
         chunk_size=args.chunk_size, ramp_chunk=ramp_chunk, weight_dtype=wd,
         kv_dtype=args.kv_dtype, pipelined=args.pipelined, window=args.window,
-        device=generator.device,
+        adapters=adapters or None, device=generator.device,
     )
 
-    def register_prefix_file(name, path):
+    def register_prefix_file(name, path, adapter=None):
         """A preset's context file ({"context": [{audio, text, speaker}]}
-        or a bare list), Mimi-encoded and registered under ``name``."""
+        or a bare list), Mimi-encoded and registered under ``name`` (and
+        ``adapter``)."""
         with open(path) as f:
             ctx = json.load(f)
         if isinstance(ctx, dict):
             ctx = ctx.get("context", [])
         t0p = time.time()
         tokens, mask = fr.concat_frames([generator._segment_frames(s) for s in segments(ctx)])
-        pre = server.register_prefix(name, tokens, mask)
+        pre = server.register_prefix(name, tokens, mask, adapter=adapter)
         print(f"  prefix {name!r}: {pre.length} frames (bucket {pre.bucket}) cached in "
               f"{time.time() - t0p:.2f}s", file=sys.stderr)
         return pre

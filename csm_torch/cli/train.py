@@ -3,11 +3,12 @@
 The port of the JAX package's ``csm-train``: data directories of (wav, txt,
 optional word-alignment json), a validation split, per-component learning
 rate multipliers, semantic/acoustic loss weights, gradient accumulation and
-in-step microbatches, freeze flags, resume.  ``--device`` picks the card
+in-step microbatches, freeze flags, Adam moment dtypes, checkpoints written
+in the background, resume.  ``--device`` picks the card
 (the default) or the CPU; ``--tiny-test`` trains a tiny random model with a
 tiny random Mimi; ``--model-path`` and ``--mimi-path`` load CSM and Mimi
-checkpoint files.  Parallel training and the options marked in ``--help``
-wait for later slices and raise.
+checkpoint files.  Parallel training (the parallelism flags) waits for a
+later slice and raises.
 
     python -m csm_torch.cli.train --audio-dir DATA --tiny-test --device cpu
 """
@@ -68,9 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--param-dtype", choices=["f32", "bf16"], default="f32",
                    help="Master-weight dtype")
     p.add_argument("--mu-dtype", choices=["f32", "bf16"], default=None,
-                   help="Adam first-moment dtype (not ported yet: ROADMAP.md A.10b)")
+                   help="Adam first-moment storage dtype (default: the param dtype)")
     p.add_argument("--nu-dtype", choices=["f32", "bf16"], default=None,
-                   help="Adam second-moment dtype (not ported yet: ROADMAP.md A.10b)")
+                   help="Adam second-moment storage dtype (default: the param dtype)")
     p.add_argument("--freeze-backbone", action="store_true")
     p.add_argument("--freeze-decoder", action="store_true")
     p.add_argument("--freeze-embeddings", action="store_true")
@@ -82,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-from", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--async-checkpointing", action="store_true",
-                   help="(not ported yet: ROADMAP.md A.10b)")
+                   help="Write checkpoints on a background thread (the latest pointer "
+                        "commits once the checkpoint is on disk)")
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches collated ahead on a host thread (0 disables)")
     add_parallel_args(p)

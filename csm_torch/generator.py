@@ -4,9 +4,9 @@ autoregressive frame generation, Mimi decode to a 24 kHz waveform.
 The counterpart of the JAX package's ``generator.py``: random weights or a
 checkpoint (a torchtune ``ckpt.pt`` or ``.safetensors``, a training
 checkpoint directory, a Mimi file), the quantized modes and the 8B flavor.
-Branches that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP.md item instead of being ignored: device meshes (A.11) and
-LoRA adapters (A.10b).  A ``watermarker`` callable is applied to each
+``lora_path`` merges a LoRA adapter into the weights at load.  Device
+meshes wait for a later slice and raise ``NotImplementedError`` naming
+their ROADMAP.md item (A.11).  A ``watermarker`` callable is applied to each
 waveform when one is given; ``load_csm`` gives none by default, and
 ``csm-torch-generate`` gives one unless told not to.  ``generate_streaming``
 yields audio chunk by chunk through a one-slot ``BatchedServer`` and the
@@ -368,9 +368,14 @@ def load_csm(
     4-bit through the fused-dequant kernel, ops/int4_matmul.py).
     ``kv_int8`` — int8 backbone KV cache, quantized as it is written.
 
+    ``lora_path`` — an adapter directory (training/lora.save_lora) trained
+    for ``args``, merged into the weights after the cast to
+    ``compute_dtype`` and before ``quantize``.
+
     Models whose bf16 tree exceeds 8 GiB (the 8B flavor) are made or loaded
-    quantized a few layers at a time and need quantize="int8" or "int4".
-    LoRA adapters raise ``NotImplementedError``."""
+    quantized a few layers at a time and need quantize="int8" or "int4";
+    they cannot merge an adapter (serve it unmerged: ``BatchedServer``'s
+    ``adapters``)."""
     args = args or csm_1b_args()
     qmode = {False: "none", True: "int8", None: "none"}.get(quantize, quantize)
     if qmode not in ("none", "int8", "int8-decoder", "int4"):
@@ -380,8 +385,6 @@ def load_csm(
             watermarker, compute_dtype, qmode, kv_int8, args, lora_path, device,
             text_tokenizer, seed, ckpt_path=ckpt_path, mimi_path=mimi_path,
         )
-    if lora_path is not None:
-        raise _waits("LoRA adapters", "A.10b")
     device = resolve_device(device)
     if ckpt_path is None:
         params = cast_params(random_csm_params(args, seed, device=device), compute_dtype)
@@ -394,6 +397,14 @@ def load_csm(
 
         params, args = load_params(ckpt_path, device)
         params = cast_params(params, compute_dtype)
+    if lora_path is not None:
+        from csm_torch.training.lora import load_lora, merge_lora
+
+        lora, lcfg, largs = load_lora(lora_path, device)
+        if largs != args:
+            raise ValueError(f"adapter at {lora_path} was trained for a different model shape "
+                             f"(adapter args != loaded args)")
+        params = cast_params(merge_lora(params, lora, lcfg), compute_dtype)
     if qmode == "int8":
         params = qz.quantize_csm_params(params)
     elif qmode == "int8-decoder":

@@ -159,6 +159,8 @@ def generate_frame(
     last_idx: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     dec_bufs: Optional[DecoderBuffers] = None,
+    lora: Optional[dict] = None,
+    lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, FrameState]:
     """Generate one 32-codebook audio frame.
 
@@ -178,6 +180,10 @@ def generate_frame(
             drawn here from ``generator``.
         dec_bufs: the decoder's buffers (``init_decoder_buffers``); None →
             fresh ones.
+        lora/lora_ids: an ADAPTER BANK ({"backbone": tree or None,
+            "decoder": ...}, training/lora.fuse_lora_bank, scaling folded
+            into b) and each row's adapter id (B,) int64, 0 = the base
+            model: multi-LoRA serving.
 
     Returns ((B, K) int32 codes, the advanced FrameState).
     """
@@ -206,9 +212,11 @@ def generate_frame(
         bb_mask, flash_pos = None, (input_pos.to(torch.int32).contiguous(), kv_pos)
     else:
         bb_mask, flash_pos = causal_mask_from_positions(input_pos, kv_pos), None
+    bb_lora = lora.get("backbone") if lora else None
+    dec_lora = lora.get("decoder") if lora else None
     h, cache = transformer_apply(
         params["backbone"], bb, h, input_pos, bb_mask, state.cache, state.offset,
-        flash_pos=flash_pos,
+        flash_pos=flash_pos, lora=bb_lora, lora_scale=1.0, lora_ids=lora_ids,
     )
     new_state = FrameState(cache, next_offset, kv_pos)
     last_h = h[:, -1, :] if last_idx is None else h[torch.arange(B, device=device), last_idx.long()]
@@ -223,6 +231,7 @@ def generate_frame(
     proj_h = _matmul(curr_h, params["projection"]).to(compute_dtype)
     dec_h, _ = transformer_apply(
         params["decoder"], dec, proj_h, dec_bufs.pos01, dec_bufs.mask01, dec_bufs.cache, 0,
+        lora=dec_lora, lora_scale=1.0, lora_ids=lora_ids,
     )
     c1_logits = _matmul(dec_h[:, -1, :], params["audio_head"][0]).float()
     samples = [c0, sample_topk(c1_logits, topk, temperature, uniforms=uniforms[1])]
@@ -233,7 +242,7 @@ def generate_frame(
         proj = _matmul(emb, params["projection"]).to(compute_dtype)
         dh, _ = transformer_apply(
             params["decoder"], dec, proj, dec_bufs.step_pos[i], dec_bufs.step_mask[i],
-            dec_bufs.cache, i,
+            dec_bufs.cache, i, lora=dec_lora, lora_scale=1.0, lora_ids=lora_ids,
         )
         logits = _matmul(dh[:, -1, :], params["audio_head"][i - 1]).float()
         samples.append(sample_topk(logits, topk, temperature, uniforms=uniforms[i]))

@@ -24,6 +24,17 @@ Attention routing (the JAX package's paths on its TPU, but for one):
     ``gqa_attention`` under the materialized mask.
 An int8 cache is dequantized (one layer's temporary) for the flash and
 plain routes only.
+
+LoRA adapters run unmerged, as in the JAX package's layer: each targeted
+projection adds ``((x @ a) @ b) · scale`` on top of its float, int8 or int4
+base, so only the adapters get gradients and no merged weight exists.  An
+adapter BANK (training/lora.fuse_lora_bank: per layer (A+1, in, R) and
+(A+1, R, out), scaling folded into b) applies each batch row's own adapter
+by its id (0 = zeros = the base model).  Adapter-input dropout takes one
+mask per (layer, projection), drawn in ``transformer_apply`` before the
+layer runs: a mask drawn inside a layer that ``torch.utils.checkpoint``
+recomputes would come out different in the recompute when it is drawn from
+an explicit generator (checkpoint restores only the global RNG).
 """
 
 from __future__ import annotations
@@ -88,10 +99,30 @@ def fuse_projections(tp: dict) -> dict:
     return out
 
 
+class Int8Matmul(torch.autograd.Function):
+    """``(x @ w8) * scale`` with a gradient for x only, saving the int8
+    weight and its scales: autograd through ``w8.to(x.dtype)`` would keep a
+    dequantized float copy of every frozen projection alive until the
+    backward (QLoRA training over an int8 base).  The backward repeats the
+    forward's rounding order: dx = (g · scale) @ w8ᵀ in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w8, scale):
+        ctx.save_for_backward(w8, scale)
+        return (x @ w8.to(x.dtype)) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w8, scale = ctx.saved_tensors
+        return (g * scale.to(g.dtype)) @ w8.to(g.dtype).T, None, None
+
+
 def _proj(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, dict) and "w4p" in w:  # grouped int4: fused-dequant kernel
         return int4_matmul(x, w)
     if isinstance(w, dict):  # int8 weight-only, per-out-channel scales
+        if torch.is_grad_enabled() and x.requires_grad:
+            return Int8Matmul.apply(x, w["w8"], w["scale"])
         return (x @ w["w8"].to(x.dtype)) * w["scale"].to(x.dtype)
     # weights cast to the activation dtype: params may be stored f32 while
     # the compute dtype is bf16
@@ -119,19 +150,44 @@ def _layer_forward(
     kv_layer: Optional[Tuple[torch.Tensor, torch.Tensor]],
     cache_offset: Optional[Offset],
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 0.0,
+    keep: Optional[dict] = None,
+    keep_prob: float = 1.0,
+    lora_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One transformer block; writes this layer's K/V into ``kv_layer`` in
-    place when given."""
+    place when given.
+
+    ``lora`` — this layer's adapters {proj: {"a": (in, r), "b": (r, out)}},
+    or a bank's {proj: {"a": (A+1, in, R), "b": (A+1, R, out)}} applied by
+    the rows' ``lora_ids`` (B,); ``keep`` — {proj: bool mask of x's shape}
+    for adapter-input dropout, kept entries scaled by 1/``keep_prob``."""
     B, S, E = h.shape
     D = cfg.head_dim
     qd, kvd = cfg.num_heads * D, cfg.num_kv_heads * D
 
+    def proj(x, name):
+        y = _proj(x, lp[name])
+        ad = None if lora is None else lora.get(name)
+        if ad is None:
+            return y
+        xa = x
+        if keep is not None:
+            xa = torch.where(keep[name], x / keep_prob, 0.0).to(x.dtype)
+        a, b = ad["a"], ad["b"]
+        if a.dim() == 3:  # a bank: each row's own adapter, scale folded into b
+            a = a.index_select(0, lora_ids).to(x.dtype)  # (B, in, R)
+            b = b.index_select(0, lora_ids).to(x.dtype)  # (B, R, out)
+            return y + torch.bmm(torch.bmm(xa, a), b) * lora_scale
+        return y + ((xa @ a.to(x.dtype)) @ b.to(x.dtype)) * lora_scale
+
     x = rms_norm(h, lp["sa_norm"], cfg.norm_eps)
     if "wqkv" in lp:
-        qkv = _proj(x, lp["wqkv"])
+        qkv = proj(x, "wqkv")
         q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
     else:
-        q, k, v = _proj(x, lp["wq"]), _proj(x, lp["wk"]), _proj(x, lp["wv"])
+        q, k, v = proj(x, "wq"), proj(x, "wk"), proj(x, "wv")
     q = apply_rope(q.reshape(B, S, cfg.num_heads, D), cos, sin)
     k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, D), cos, sin)
     v = v.reshape(B, S, cfg.num_kv_heads, D)
@@ -149,16 +205,16 @@ def _layer_forward(
     else:
         attn = gqa_attention(q, k, v, mask)
 
-    h = h + _proj(attn.reshape(B, S, qd), lp["wo"])
+    h = h + proj(attn.reshape(B, S, qd), "wo")
 
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if "w13" in lp:
         I = cfg.intermediate_dim
-        g13 = _proj(x, lp["w13"])
+        g13 = proj(x, "w13")
         gate, up = F.silu(g13[..., :I]), g13[..., I:]
     else:
-        gate, up = F.silu(_proj(x, lp["w1"])), _proj(x, lp["w3"])
-    return h + _proj(gate * up, lp["w2"])
+        gate, up = F.silu(proj(x, "w1")), proj(x, "w3")
+    return h + proj(gate * up, "w2")
 
 
 def transformer_apply(
@@ -171,6 +227,11 @@ def transformer_apply(
     cache_offset: Optional[Offset] = None,
     flash_pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     remat: bool = False,
+    lora: Optional[dict] = None,
+    lora_scale: float = 0.0,
+    lora_dropout_rate: float = 0.0,
+    lora_generator: Optional[torch.Generator] = None,
+    lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the transformer.
 
@@ -192,19 +253,42 @@ def transformer_apply(
             (``torch.utils.checkpoint`` per layer, the counterpart of
             ``jax.checkpoint`` over the JAX package's scanned layer body):
             only the layer inputs are kept between the passes.
+        lora: layer-stacked adapters {proj: {"a": (L, in, r), "b": (L, r,
+            out)}}, or a bank {proj: {"a": (L, A+1, in, R), "b": (L, A+1,
+            R, out)}} with the rows' adapter ids ``lora_ids`` (B,) int64.
+        lora_scale: alpha / r (1 for a bank).
+        lora_dropout_rate: adapter-input dropout of the uncached (training)
+            pass; its masks are drawn from ``lora_generator`` (None: the
+            global generator) before each layer runs.
 
     Returns (normed h (B, S, E), the cache or None).
     """
+    if "wqkv" in params and lora is not None and not set(lora) <= {"wqkv", "w13", "wo", "w2"}:
+        raise ValueError(
+            "fused projections (fuse_projections) require LoRA adapters to be merged first "
+            "(training/lora.merge_lora) or fused into bank form (training/lora.fuse_lora_bank)")
     cos, sin = rope_at_positions(cfg, positions)
     fixed = ("wo", "w2", "sa_norm", "mlp_norm")
     names = (("wqkv",) if "wqkv" in params else ("wq", "wk", "wv")) + (
         ("w13",) if "w13" in params else ("w1", "w3")
     ) + fixed
     stacks = {n: _layers(params[n]) for n in names}
+    lora_stacks = None if lora is None else {
+        n: {ab: t.unbind(0) for ab, t in ad.items()} for n, ad in lora.items()}
+    dropout = lora is not None and lora_dropout_rate > 0.0 and cache is None
+    keep_prob = 1.0 - lora_dropout_rate
     for layer in range(cfg.num_layers):
         lp = {n: stacks[n][layer] for n in names}
         kv_layer = None if cache is None else (layer_half(cache.k, layer), layer_half(cache.v, layer))
-        layer_args = (h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos)
+        lo = keep = None
+        if lora_stacks is not None:
+            lo = {n: {ab: v[layer] for ab, v in ad.items()} for n, ad in lora_stacks.items()}
+        if dropout:  # drawn here, outside the recomputed layer
+            keep = {n: torch.rand((*h.shape[:-1], ad["a"].shape[-2]), generator=lora_generator,
+                                  device=h.device) < keep_prob
+                    for n, ad in lo.items()}
+        layer_args = (h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos, lo,
+                      lora_scale, keep, keep_prob, lora_ids)
         if remat and torch.is_grad_enabled():
             h = checkpoint(_layer_forward, *layer_args, use_reentrant=False)
         else:

@@ -49,11 +49,24 @@ Before a row's position reaches the RoPE horizon, a re-anchor shifts its
 positions down and rotates its cached keys by the same amount (RoPE is
 relative: the scores are unchanged).
 
+Multi-LoRA serving (``adapters=``, ``add_adapter``, a request's
+``adapter``): the adapters are stacked into one bank over the fused param
+layout (training/lora.fuse_lora_bank, id 0 the zero adapter) and every row
+applies its own adapter by its id.  The bank and the per-slot ids are
+device buffers that the graphs read: the ids follow their rows into a
+capacity's buffers and back, and into the admission's row.  An
+``add_adapter`` or ``remove_adapter`` that keeps the bank's shapes copies
+the new bank into the old buffers on the serving stream (after the chunk in
+flight), with no new capture; one that changes a shape (another largest
+rank, another set of touched projections, another adapter count) retakes
+every capture at its next use, and the old graphs and bank stay alive
+until the work queued before the change has run.
+
 On the CPU the same functions run without capture.  Sampling draws its
 uniforms from a ``torch.Generator`` that ``reset(seed)`` seeds, outside the
 graphs; the JAX server's ``fold_in`` key schedule is not reproduced, so the
-two servers' codes are equal at topk=1 only.  Meshes and adapter banks
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+two servers' codes are equal at topk=1 only.  Meshes raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from csm_torch.models.generation import PROMPT_BUCKETS, bucket_length, capture_g
 from csm_torch.ops.kvcache import (KVCache, KVHalf, QuantKV, RowOffsets, cache_leaves,
                                    quantize_kv_rows, reset_kv_cache)
 from csm_torch.ops.rope import apply_rope, scaled_rope_freqs
+from csm_torch.training import lora as lora_mod
 from csm_torch.utils import quantize as qz
 from csm_torch.utils.device import resolve_device
 
@@ -87,7 +101,8 @@ class StreamRequest:
     once, possibly with n=0.  ``prefix`` names a prefix registered with
     ``BatchedServer.register_prefix``: the stream starts from its cached
     context, and ``tokens`` holds only the request's own frames.
-    ``adapter`` waits for a later slice and raises when set."""
+    ``adapter`` names a loaded LoRA adapter (None: the base model); with a
+    ``prefix`` it must be the adapter the prefix was registered under."""
 
     tokens: np.ndarray  # (T, K+1) int32
     mask: np.ndarray  # (T, K+1) bool
@@ -181,12 +196,14 @@ class DecodeStep:
         self.server, self.c = server, c
         if c == server.n_slots:  # the full batch decodes the resident state
             self.state, self.slots, self.idx = server.state, server.slots, None
+            self.ids = server.adapter_ids
         else:
             st = csm.init_frame_state(args, c, server.compute_dtype, server.cache_len, dev,
                                       server.kv_dtype)
             self.state = st._replace(offset=RowOffsets(torch.zeros(c, dtype=torch.int64, device=dev)))
             self.slots = init_slot_state(c, K, dev)
             self.idx = torch.zeros(c, dtype=torch.int64, device=dev)
+            self.ids = torch.zeros(c, dtype=torch.int64, device=dev)  # the rows' adapters
         self.uniforms = torch.zeros((K, c, 1), dtype=torch.float32, device=dev)
         self.dec_bufs = csm.init_decoder_buffers(args, c, server.compute_dtype, dev)
         self.tokens = torch.zeros((c, 1, K + 1), dtype=torch.int32, device=dev)
@@ -210,7 +227,7 @@ class DecodeStep:
         frame, _ = csm.generate_frame(
             srv.params, srv.args, None, self.tokens, self.audio_cols & live[:, None, None], pos,
             self.state, srv.temperature_t, srv.topk, srv.compute_dtype,
-            uniforms=self.uniforms, dec_bufs=self.dec_bufs,
+            uniforms=self.uniforms, dec_bufs=self.dec_bufs, lora=srv.bank, lora_ids=self.ids,
         )
         self.state.offset.cols.add_(1)
         emit = live & ~(frame == 0).all(dim=1)  # EOS emits the all-zero frame
@@ -228,20 +245,25 @@ class DecodeStep:
         """Capture ``step``.  Its eager warm-up pass runs with every row dead
         and every column past the cache's end, where no ring wraps it (a live
         row's column is at most the cache's length), so it writes no cache
-        entry; the control state it advances is put back after.  Capacities
-        are captured on first use, while other rows are live."""
-        state = (*self.slots, self.state.offset.cols)
+        entry; the control state and the step counter it advances are put
+        back after.  Capacities are captured on first use, while other rows
+        are live, and a capture retaken after a bank reshape happens in the
+        middle of a chunk's dispatch."""
+        state = (*self.slots, self.state.offset.cols, self.t)
         keep = [x.clone() for x in state]
         self.slots.live.zero_()
         self.state.offset.cols.fill_(self.server.cache_len + 1)
-        self.t.zero_()
         try:
-            (self.graph,) = capture_graphs([self.step], self.server.device, self.server.pool)
+            self.graph = self.server._capture(self.step)
         finally:
             for x, k in zip(state, keep):
                 x.copy_(k)
 
     def run(self) -> None:
+        """One step: the graph's replay, captured at first use (or retaken
+        after a bank reshape) on a card; the step itself on the CPU."""
+        if self.graph is None and self.server.graphs:
+            self.capture()
         if self.graph is None:
             self.step()
         else:
@@ -261,6 +283,7 @@ class DecodeStep:
         torch.index_select(srv.offsets, 0, rows, out=self.state.offset.cols)
         for full, sub in zip(srv.slots, self.slots):
             torch.index_select(full, 0, rows, out=sub)
+        torch.index_select(srv.adapter_ids, 0, rows, out=self.ids)
         self.slots.live.logical_and_(self.idx < n)
 
     def scatter(self, n_live: int) -> None:
@@ -274,6 +297,7 @@ class DecodeStep:
         srv.offsets.index_copy_(0, idx, self.state.offset.cols[:n_live])
         for full, sub in zip(srv.slots, self.slots):
             full.index_copy_(0, idx, sub[:n_live])
+        srv.adapter_ids.index_copy_(0, idx, self.ids[:n_live])
 
     def release(self) -> None:
         if self.graph is not None:
@@ -306,6 +330,7 @@ class Prefill:
         self.p_len = torch.zeros((1,), dtype=torch.int32, device=dev)  # the prefix's frames
         self.budget = torch.ones((1,), dtype=torch.int32, device=dev)
         self.slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.ids = torch.zeros((1,), dtype=torch.int64, device=dev)  # the request's adapter
         self.end_col = torch.full((1,), prefix + bucket, dtype=torch.int64, device=dev)
         self.col = torch.arange(bucket, dtype=torch.int32, device=dev)
         self.uniforms = torch.zeros((K, 1, 1), dtype=torch.float32, device=dev)
@@ -331,7 +356,7 @@ class Prefill:
         frame, _ = csm.generate_frame(
             srv.params, srv.args, None, self.tokens, self.mask, input_pos, sub._replace(offset=pb),
             srv.temperature_t, srv.topk, srv.compute_dtype, last_idx=self.length - 1,
-            uniforms=self.uniforms, dec_bufs=self.dec_bufs,
+            uniforms=self.uniforms, dec_bufs=self.dec_bufs, lora=srv.bank, lora_ids=self.ids,
         )
         if not self.admit:
             return
@@ -346,6 +371,7 @@ class Prefill:
         sl.live.index_copy_(0, self.slot, ~eos & (self.budget > 1))
         sl.remaining.index_copy_(0, self.slot, self.budget - 1)
         sl.anchor.index_copy_(0, self.slot, self.end_col.to(torch.int32))
+        srv.adapter_ids.index_copy_(0, self.slot, self.ids)
         srv.frame0.index_copy_(0, self.slot, frame)
 
     def run(self) -> None:
@@ -353,7 +379,7 @@ class Prefill:
         captures the graph: its eager warm-up pass does this same work,
         which the replay then repeats."""
         if self.server.graphs and self.graph is None:
-            (self.graph,) = capture_graphs([self.prefill], self.server.device, self.server.pool)
+            self.graph = self.server._capture(self.prefill)
         if self.graph is None:
             self.prefill()
         else:
@@ -381,8 +407,11 @@ class BatchedServer:
     steps; ``topk`` is fixed.  ``window``: a sliding-window cache of that
     many columns for sessions of any length (``max_frames`` is not capped
     by the cache), re-anchored ``reanchor_headroom`` positions below the
-    RoPE horizon.  On a card the functions are captured (``graphs``); on
-    the CPU they run without capture."""
+    RoPE horizon.  ``adapters``: {name: an adapter directory
+    (training/lora.save_lora) or a preloaded (lora tree, LoRAConfig,
+    ModelArgs or None)}, served as one bank (the module note).  On a card
+    the functions are captured (``graphs``; ``captures`` and
+    ``capture_s`` count them); on the CPU they run without capture."""
 
     def __init__(
         self,
@@ -406,8 +435,7 @@ class BatchedServer:
     ):
         if mesh is not None:
             raise _waits("serving over a device mesh", "A.11")
-        if adapters:
-            raise _waits("multi-LoRA serving (adapters=)", "A.10b")
+        self._model_args = args  # what an adapter must have been trained for
         self.window = window
         if window is not None:
             if window > max_seq_len:
@@ -451,6 +479,11 @@ class BatchedServer:
         self.kv_dtype = torch.int8 if kv_dtype == "int8" else None
         self.graphs = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.captures = 0  # graphs captured, and their seconds
+        self.capture_s = 0.0
+        # graphs and bank buffers replaced while work that reads them may
+        # still be queued: (event recorded at the replacement, objects)
+        self._retired: List[tuple] = []
 
         dev, K = self.device, args.audio_num_codebooks
         bb = args.backbone
@@ -463,6 +496,7 @@ class BatchedServer:
         self.state = state._replace(offset=RowOffsets(self.offsets))
         self.slots = init_slot_state(n_slots, K, dev)
         self.frame0 = torch.zeros((n_slots, K), dtype=torch.int32, device=dev)
+        self.adapter_ids = torch.zeros((n_slots,), dtype=torch.int64, device=dev)  # by slot
         self.temperature_t = torch.ones((), dtype=torch.float32, device=dev)
         self._decodes: Dict[int, DecodeStep] = {}  # by capacity
         self._prefills: Dict[int, Prefill] = {}  # by bucket
@@ -475,6 +509,16 @@ class BatchedServer:
         self.step_calls: Dict[int, int] = {}
         self.prefill_calls: Dict[int, int] = {}
         self.register_calls: Dict[int, int] = {}
+        # multi-LoRA: _loaded[id - 1] is (tree, LoRAConfig) or None for a
+        # freed id, so surviving ids are stable across add and remove
+        self.bank: Optional[dict] = None
+        self._adapter_id: Dict[str, int] = {}
+        self._loaded: List[Optional[tuple]] = []
+        if adapters:
+            for name, src in adapters.items():
+                self._loaded.append(self._load_adapter(name, src))
+                self._adapter_id[name] = len(self._loaded)  # 0 = base
+            self._rebuild_bank()
         self.reset()
 
     # ---- state ----
@@ -488,6 +532,8 @@ class BatchedServer:
         for x in self.slots:
             x.zero_()
         self.frame0.zero_()
+        self.adapter_ids.zero_()
+        self._slot_adapter = np.zeros(self.n_slots, np.int64)  # host mirror of adapter_ids
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         n = self.n_slots
         self.slot_request: List[Optional[StreamRequest]] = [None] * n
@@ -522,6 +568,26 @@ class BatchedServer:
             fn.release()
         for d in (self._decodes, self._prefills, self._prefix_prefills, self._register_fns):
             d.clear()
+        self._retired.clear()
+
+    def _capture(self, fn):
+        """One graph of ``fn`` in the server's pool, counted and timed."""
+        t0 = time.perf_counter()
+        (graph,) = capture_graphs([fn], self.device, self.pool)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return graph
+
+    def _retire(self, *objs) -> None:
+        """Keep ``objs`` alive until the work queued so far has run."""
+        if self.device.type != "cuda":
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        self._retired.append((ev, objs))
+
+    def _prune_retired(self) -> None:
+        self._retired = [(ev, o) for ev, o in self._retired if not ev.query()]
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A small host array for a non-blocking copy: pinned on a card, so
@@ -538,8 +604,6 @@ class BatchedServer:
         ds = self._decodes.get(c)
         if ds is None:
             ds = self._decodes[c] = DecodeStep(self, c)
-            if self.graphs:
-                ds.capture()
         return ds
 
     def _prefill(self, bucket: int, prefix: int = 0) -> Prefill:
@@ -564,9 +628,15 @@ class BatchedServer:
         """Run a shared context ((T, K+1) frames, e.g. a voice preset's
         segments) through the backbone once and keep its K/V under
         ``name``; a request with ``prefix=name`` then carries only its own
-        frames.  Registering a name again replaces it for later admissions."""
+        frames.  Registering a name again replaces it for later admissions.
+        ``adapter``: compute it under a loaded adapter; requests naming the
+        prefix must name the same adapter."""
+        aid = 0
         if adapter is not None:
-            raise _waits("prefixes computed under a LoRA adapter", "A.10b")
+            if adapter not in self._adapter_id:
+                raise ValueError(f"prefix {name!r}: unknown adapter {adapter!r} "
+                                 f"(loaded: {sorted(self._adapter_id)})")
+            aid = self._adapter_id[adapter]
         T = int(tokens.shape[0])
         # a finer bucket list than requests': a short preset leaves more of
         # the cache to the request
@@ -584,12 +654,13 @@ class BatchedServer:
         self._load(reg.tokens, toks)
         self._load(reg.mask, msk)
         self._load(reg.length, np.array([T], np.int32))
+        self._load(reg.ids, np.array([aid], np.int64))
         reg.run()
         self.register_calls[bucket] = self.register_calls.get(bucket, 0) + 1
         blocks = [x.clone() for x in cache_leaves(reg.sub.cache)]
         k, v = ((QuantKV(*blocks[:2]), QuantKV(*blocks[2:])) if self.kv_dtype is not None
                 else blocks)
-        pre = CachedPrefix(k, v, reg.sub.kv_pos.clone(), T, bucket, None)
+        pre = CachedPrefix(k, v, reg.sub.kv_pos.clone(), T, bucket, adapter)
         self._prefixes[name] = pre
         return pre
 
@@ -600,11 +671,87 @@ class BatchedServer:
             raise ValueError(f"unknown prefix {name!r} (registered: {sorted(self._prefixes)})")
         del self._prefixes[name]
 
-    def add_adapter(self, *args, **kwargs):
-        raise _waits("multi-LoRA serving (add_adapter)", "A.10b")
+    # ---- multi-LoRA adapter bank ----
 
-    def remove_adapter(self, *args, **kwargs):
-        raise _waits("multi-LoRA serving (remove_adapter)", "A.10b")
+    def _load_adapter(self, name: str, src) -> tuple:
+        if isinstance(src, str):
+            lora, lcfg, largs = lora_mod.load_lora(src)
+        else:  # preloaded (lora tree, LoRAConfig, ModelArgs or None)
+            lora, lcfg, largs = src
+        if largs is not None and largs != self._model_args:
+            raise ValueError(f"adapter {name!r} was trained for a different model shape")
+        return lora, lcfg
+
+    def _rebuild_bank(self) -> None:
+        """Restack the bank from ``_loaded`` (a freed id: zero rows).  Same
+        shapes: copied into the old buffers in place; else the new buffers
+        replace them and every graph is retaken at its next use."""
+        if not self._adapter_id:
+            new = None
+        else:
+            loaded = [x if x is not None else ({}, lora_mod.LoRAConfig(r=1))
+                      for x in self._loaded]
+            new = lora_mod.fuse_lora_bank(loaded, self._model_args, dtype=self.compute_dtype,
+                                          layout="fused", device=self.device)
+            for comp in ("backbone", "decoder"):
+                extra = set(new.get(comp) or ()) - set(self.params[comp])
+                if extra:
+                    raise ValueError(f"adapter bank names {sorted(extra)} missing from the "
+                                     f"{comp} param layout: adapters would be ignored")
+        old = self.bank
+        if (old is not None and new is not None
+                and lora_mod.bank_shapes(old) == lora_mod.bank_shapes(new)):
+            for comp, sub in new.items():  # on the serving stream: after the chunk in flight
+                for name, ad in (sub or {}).items():
+                    for ab, t in ad.items():
+                        old[comp][name][ab].copy_(t)
+            return
+        graphs = [fn.graph for d in (self._decodes, self._prefills, self._prefix_prefills,
+                                     self._register_fns) for fn in d.values() if fn.graph]
+        for d in (self._decodes, self._prefills, self._prefix_prefills, self._register_fns):
+            for fn in d.values():
+                fn.graph = None
+        self._retire(old, graphs)
+        self.bank = new
+
+    def add_adapter(self, name: str, src) -> int:
+        """Load a LoRA adapter into the running server (``src``: a
+        ``save_lora`` directory or a preloaded (tree, LoRAConfig, ModelArgs
+        or None)).  Streams in flight keep their adapters; the next
+        admission may name it.  Returns its id."""
+        if name in self._adapter_id:
+            raise ValueError(f"adapter {name!r} already loaded")
+        entry = self._load_adapter(name, src)
+        free = [i for i, x in enumerate(self._loaded) if x is None]
+        pos = free[0] if free else len(self._loaded)
+        if free:
+            self._loaded[pos] = entry
+        else:
+            self._loaded.append(entry)
+        self._adapter_id[name] = pos + 1
+        self._rebuild_bank()
+        return pos + 1
+
+    def remove_adapter(self, name: str) -> None:
+        """Unload an adapter: its bank rows zero and its id is reused.
+        Refused while an active stream decodes with it or a registered
+        prefix was computed under it."""
+        aid = self._adapter_id.get(name)
+        if aid is None:
+            raise ValueError(f"unknown adapter {name!r} (loaded: {sorted(self._adapter_id)})")
+        if bool(np.any(self._slot_adapter[self.active] == aid)):
+            raise ValueError(f"adapter {name!r} is in use by an active stream")
+        stale = [p for p, pre in self._prefixes.items() if (pre.adapter or None) == name]
+        if stale:
+            raise ValueError(f"adapter {name!r} is referenced by prefix(es) {stale}")
+        del self._adapter_id[name]
+        # dead slots still holding the id read the base model's zero row
+        self._slot_adapter[self._slot_adapter == aid] = 0
+        self.adapter_ids.masked_fill_(self.adapter_ids == aid, 0)
+        self._loaded[aid - 1] = None
+        while self._loaded and self._loaded[-1] is None:
+            self._loaded.pop()  # the bank shrinks when its tail frees
+        self._rebuild_bank()
 
     # ---- sliding-window re-anchor ----
 
@@ -663,8 +810,9 @@ class BatchedServer:
             mask = np.zeros((T, K + 1), bool)
             mask[:, K] = True
             # with a ramp the budget outlives the ramp step
+            adapter = self._prefixes[prefix].adapter if prefix is not None else None
             return StreamRequest(tokens, mask, max_frames=3 + (self.ramp_chunk or 0),
-                                 request_id=-1, prefix=prefix)
+                                 request_id=-1, prefix=prefix, adapter=adapter)
 
         def fits(used):  # the prompt buckets a request can take after ``used`` columns
             room = (self.window - 2 * self.chunk_size - 2 if self.window is not None
@@ -706,8 +854,6 @@ class BatchedServer:
     def submit(self, req: StreamRequest) -> Optional[int]:
         """Admit a request into a free slot (its prefill runs now); None
         when every slot is taken."""
-        if req.adapter is not None:
-            raise _waits("multi-LoRA serving (a request's adapter)", "A.10b")
         free = np.nonzero(~self.active)[0]
         if len(free) == 0:
             return None
@@ -719,6 +865,11 @@ class BatchedServer:
             if pre is None:
                 raise ValueError(f"request {req.request_id}: unknown prefix {req.prefix!r} "
                                  f"(registered: {sorted(self._prefixes)})")
+            if (pre.adapter or None) != (req.adapter or None):
+                raise ValueError(
+                    f"request {req.request_id}: prefix {req.prefix!r} was computed under "
+                    f"adapter {pre.adapter!r} but the request uses {req.adapter!r}: register "
+                    f"the prefix with adapter={req.adapter!r}")
         pb = pre.bucket if pre is not None else 0
         said = f"prefix bucket {pb} + " if pb else ""
         bucket = bucket_length(T, tuple(b for b in PROMPT_BUCKETS if b <= self.cache_len))
@@ -740,6 +891,12 @@ class BatchedServer:
         msk = np.zeros((1, bucket, K + 1), bool)
         toks[0, :T] = req.tokens
         msk[0, :T] = req.mask
+        aid = 0
+        if req.adapter is not None:
+            if req.adapter not in self._adapter_id:
+                raise ValueError(f"request {req.request_id}: unknown adapter {req.adapter!r} "
+                                 f"(loaded: {sorted(self._adapter_id)})")
+            aid = self._adapter_id[req.adapter]
         pf = self._prefill(bucket, pb)
         if pre is not None:
             pf.load_prefix(pre)
@@ -749,11 +906,13 @@ class BatchedServer:
         self._load(pf.length, np.array([T], np.int32))
         self._load(pf.budget, np.array([req.max_frames], np.int32))
         self._load(pf.slot, np.array([slot], np.int64))
+        self._load(pf.ids, np.array([aid], np.int64))
         self.temperature_t.fill_(self.temperature)
         torch.rand(tuple(pf.uniforms.shape), generator=self.gen, out=pf.uniforms)
         pf.run()
         self.prefill_calls[bucket] = self.prefill_calls.get(bucket, 0) + 1
 
+        self._slot_adapter[slot] = aid
         self.slot_times[slot] = {"admit_s": time.perf_counter()}
         self._pos_host[slot] = (pre.length if pre is not None else 0) + T
         self._left[slot] = req.max_frames - 1
@@ -776,6 +935,7 @@ class BatchedServer:
         budget still allows: where the JAX loop exits on the device once no
         row is live, a graph replay would run its whole step; a chunk of no
         step still reads liveness and the pending frame 0s."""
+        self._prune_retired()
         pend, self._pending = self._pending, []
         live_idx = np.nonzero(self.active)[0]
         c = self._decode_capacity(len(live_idx))

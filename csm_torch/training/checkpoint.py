@@ -10,14 +10,16 @@ never points at a partial checkpoint.
 The state is the port's own format: ``state.pt``, a ``torch.save`` of
 ``{"params": ..., "opt_state": ...}`` (tensors, dicts and ints only, read
 back with ``weights_only=True``).  The port does not read the JAX package's
-orbax checkpoints, nor does it write them.  Saving in the background
-(``AsyncCheckpointWriter``) waits (ROADMAP.md A.10b).
+orbax checkpoints, nor does it write them.  ``AsyncCheckpointWriter``
+saves in the background: it copies the state to host memory on the
+caller's thread, then writes and commits it on a thread of its own.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -44,6 +46,34 @@ def _atomic_write_json(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
+def _state_tree(state: TrainState) -> dict:
+    tree = {"params": state.params}
+    if state.opt_state is not None:
+        tree["opt_state"] = state.opt_state
+    return tree
+
+
+def _write(ckpt_dir: str, name: str, tree: dict, step: int, args: ModelArgs, epoch: int,
+           global_step: int, loss: float) -> str:
+    """The state file through a temporary name, then ``meta.json``, then the
+    ``latest`` pointer: each step only once the one before it is on disk."""
+    path = _ckpt_path(ckpt_dir, name)
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    meta = {
+        "epoch": int(epoch),
+        "global_step": int(global_step),
+        "step": int(step),
+        "loss": float(loss),
+        "model_args": json.loads(args.to_json()),
+    }
+    _atomic_write_json(os.path.join(path, "meta.json"), meta)
+    _atomic_write_json(os.path.join(os.path.abspath(ckpt_dir), LATEST_FILE), {"latest": name})
+    return path
+
+
 def save_checkpoint(
     ckpt_dir: str,
     name: str,
@@ -54,24 +84,65 @@ def save_checkpoint(
     loss: float = 0.0,
 ) -> str:
     """Write a named checkpoint and advance the ``latest`` pointer."""
-    path = _ckpt_path(ckpt_dir, name)
-    os.makedirs(path, exist_ok=True)
-    tree = {"params": state.params}
-    if state.opt_state is not None:
-        tree["opt_state"] = state.opt_state
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(tree, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    meta = {
-        "epoch": int(epoch),
-        "global_step": int(global_step),
-        "step": int(state.step),
-        "loss": float(loss),
-        "model_args": json.loads(args.to_json()),
-    }
-    _atomic_write_json(os.path.join(path, "meta.json"), meta)
-    _atomic_write_json(os.path.join(os.path.abspath(ckpt_dir), LATEST_FILE), {"latest": name})
-    return path
+    return _write(ckpt_dir, name, _state_tree(state), int(state.step), args, epoch, global_step,
+                  loss)
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint saves that do not hold up the training loop.
+
+    ``save`` copies the state to host memory on the caller's thread (the
+    training step that follows may then update the device tensors in
+    place), and returns; a background thread writes the state file, then
+    ``meta.json`` and the ``latest`` pointer, so ``latest`` never names a
+    checkpoint whose state is not complete on disk.  One save is in flight
+    at a time (a new ``save`` waits for the previous one), and a failure
+    in the background re-raises at the next ``save`` or ``wait``."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, ckpt_dir: str, name: str, state: TrainState, args: ModelArgs,
+             epoch: int = 0, global_step: int = 0, loss: float = 0.0) -> str:
+        self.wait()  # one in flight; surfaces a prior failure
+        tree, step = _to_host(_state_tree(state)), int(state.step)
+
+        def commit():
+            try:
+                _write(ckpt_dir, name, tree, step, args, epoch, global_step, loss)
+            except BaseException as e:  # surfaced on the next save or wait
+                self._error = e
+
+        self._thread = threading.Thread(target=commit, daemon=True, name=f"ckpt-{name}")
+        self._thread.start()
+        return _ckpt_path(ckpt_dir, name)
+
+    def wait(self) -> None:
+        """Block until the save in flight, if any, is committed."""
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from e
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self) -> "AsyncCheckpointWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -9,8 +9,10 @@ float32.
 The backbone attends through the flash kernels (forward and backward) for
 T >= ``FLASH_MIN_SEQ`` and through plain attention under a materialized mask
 below that, the JAX package's routing.  On the CPU the flash route computes
-the kernels' plain versions.  Sequence- and pipeline-parallel backbones
-(``seq_mesh``, ``pp_mesh``) and LoRA adapters wait for later slices.
+the kernels' plain versions.  LoRA adapters (``lora``) run unmerged in
+both transformers, with adapter-input dropout in training only.  Sequence-
+and pipeline-parallel backbones (``seq_mesh``, ``pp_mesh``) wait for a
+later slice.
 
 Batch layout (made by ``csm_torch.data.dataset``):
     tokens       (B, T, K+1) int32  interleaved text+audio frames
@@ -84,6 +86,8 @@ def compute_loss(
     compute_dtype=torch.bfloat16,
     remat: bool = False,
     lora: Optional[dict] = None,
+    lora_scale: float = 0.0,
+    lora_dropout: float = 0.0,
     seq_mesh=None,
     pp_mesh=None,
     frame_scores: Optional[torch.Tensor] = None,
@@ -95,9 +99,10 @@ def compute_loss(
                                  1/amortization_ratio subset, teacher-forced)
 
     ``generator`` draws the subset; ``frame_scores`` (B*T,) replaces the
-    draw."""
-    if lora is not None:
-        raise _waits("LoRA training", "A.10b")
+    draw.  ``lora`` — {"backbone": adapters, "decoder": adapters}
+    (training/lora.py) applied at ``lora_scale``; ``lora_dropout`` > 0
+    draws the adapters' input-dropout masks from ``generator`` too (the
+    eval step passes 0)."""
     if seq_mesh is not None or pp_mesh is not None:
         raise _waits("sequence- and pipeline-parallel training", "A.11")
     B, T, _ = batch.tokens.shape
@@ -110,19 +115,24 @@ def compute_loss(
         mask, flash_pos = None, (positions, positions[0].contiguous())
     else:
         mask, flash_pos = causal_mask_from_positions(positions, positions[0]), None
+    lora_kw = lambda comp: dict(  # noqa: E731
+        lora=None if lora is None else lora.get(comp), lora_scale=lora_scale,
+        lora_dropout_rate=lora_dropout, lora_generator=generator)
     h, _ = transformer_apply(
-        params["backbone"], args.backbone, h, positions, mask, flash_pos=flash_pos, remat=remat
+        params["backbone"], args.backbone, h, positions, mask, flash_pos=flash_pos, remat=remat,
+        **lora_kw("backbone"),
     )
     return _loss_from_backbone_out(
         params, args, generator, batch, h, semantic_weight=semantic_weight,
         acoustic_weight=acoustic_weight, amortization_ratio=amortization_ratio,
         compute_dtype=compute_dtype, remat=remat, frame_scores=frame_scores,
+        dec_lora=lora_kw("decoder"),
     )
 
 
 def _loss_from_backbone_out(
     params, args, generator, batch, h, *, semantic_weight, acoustic_weight,
-    amortization_ratio, compute_dtype, remat, frame_scores=None,
+    amortization_ratio, compute_dtype, remat, frame_scores=None, dec_lora=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Semantic CE + amortized acoustic decoder CE, given the backbone's
     (B, T, E_b) output ``h``."""
@@ -154,7 +164,8 @@ def _loss_from_backbone_out(
     dec_pos = torch.arange(K, dtype=torch.int32, device=device).expand(n_sub, K)
     dec_mask = causal_mask_from_positions(dec_pos, dec_pos[0])
     dh, _ = transformer_apply(
-        params["decoder"], args.decoder, dec_in, dec_pos, dec_mask, remat=remat
+        params["decoder"], args.decoder, dec_in, dec_pos, dec_mask, remat=remat,
+        **(dec_lora or {}),
     )  # (n_sub, K, E_d)
 
     head = params["audio_head"]

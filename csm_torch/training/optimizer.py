@@ -16,7 +16,14 @@ the tests hold the two to float32 rounding:
   * decoupled decay and the step: ``p −= lr · (u + wd · p)``;
   * a frozen component gets no update, no decay and no moments;
   * accumulation: a running mean ``acc += (g − acc) / (i + 1)`` over k
-    calls, and the inner update on every k-th call.
+    calls, and the inner update on every k-th call;
+  * moments stored in ``mu_dtype`` / ``nu_dtype`` (default: the param's
+    dtype) with the math in float32, and the update computed from the
+    moments as stored (the JAX package's ``scale_by_adam_dtypes``).
+
+``make_lora_optimizer`` is the same update over an adapter tree: one group,
+Adam, or AdamW when ``weight_decay`` is set (optax's ``adam`` / ``adamw``
+behind the clip).
 
 Parameters and moments are updated in place with in-place tensor ops (no
 float32 copies of float32 leaves), and the update never reads a device
@@ -30,7 +37,6 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from csm_torch.generator import _waits
 
 
 class TrainState(NamedTuple):
@@ -100,28 +106,40 @@ class Optimizer:
     eps = 1e-8  # outside the square root, as optax's
 
     def __init__(self, params, learning_rate, weight_decay, max_grad_norm, lr_multipliers,
-                 labels, accumulation_steps, b1, b2):
+                 labels, accumulation_steps, b1, b2, mu_dtype=None, nu_dtype=None):
+        self.learning_rate = learning_rate
+        self.lr_multipliers, self.labels = lr_multipliers, labels
         self.max_grad_norm = max_grad_norm
         self.weight_decay = weight_decay
         self.accumulation_steps = accumulation_steps
         self.b1, self.b2 = b1, b2
+        self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+        if params is not None:
+            self._bind(params)
+
+    def _bind(self, params) -> None:
+        """The leaves' paths and learning rates (None for a frozen leaf);
+        ``labels`` None puts every leaf in one group of multiplier 1."""
         self.paths = [path for path, _ in named_leaves(params)]
-        # learning rate per leaf; None for a frozen leaf
+        labels = self.labels or dict.fromkeys(params, "all")
+        mults = self.lr_multipliers or {"all": 1.0}
         self.lrs = [None if labels[path.split("/")[0]] == "frozen"
-                    else learning_rate * lr_multipliers[labels[path.split("/")[0]]]
+                    else self.learning_rate * mults[labels[path.split("/")[0]]]
                     for path in self.paths]
 
     def init(self, params) -> dict:
-        """Zero moments for every trained leaf, in its dtype and on its
-        device; the Adam count; the accumulator when k > 1."""
+        """Zero moments for every trained leaf, in ``mu_dtype`` / ``nu_dtype``
+        (default its dtype) and on its device; the Adam count; the
+        accumulator when k > 1."""
+        if self.labels is None:
+            self._bind(params)
         leaves = [t for _, t in named_leaves(params)]
-        state = {
-            "count": 0,
-            "mu": {p: torch.zeros_like(t) for p, t, lr in zip(self.paths, leaves, self.lrs)
-                   if lr is not None},
-            "nu": {p: torch.zeros_like(t) for p, t, lr in zip(self.paths, leaves, self.lrs)
-                   if lr is not None},
-        }
+
+        def zeros(dtype):
+            return {p: torch.zeros_like(t, dtype=dtype or t.dtype)
+                    for p, t, lr in zip(self.paths, leaves, self.lrs) if lr is not None}
+
+        state = {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros(self.nu_dtype)}
         if self.accumulation_steps > 1:
             state["mini_step"] = 0
             state["acc"] = {p: torch.zeros_like(t) for p, t in zip(self.paths, leaves)}
@@ -166,13 +184,16 @@ class Optimizer:
                 gf.div_(div).mul_(mul)
             mu_f.mul_(self.b1).add_(gf, alpha=1.0 - self.b1)
             nu_f.mul_(self.b2).addcmul_(gf, gf, value=1.0 - self.b2)
+            for stored, f in ((mu, mu_f), (nu, nu_f)):
+                if stored is not f:  # the update reads the moments as stored
+                    stored.copy_(f)
+                    f.copy_(stored)
             u = mu_f.div(bc1).div_(nu_f.div(bc2).sqrt_().add_(self.eps))
             if self.weight_decay:
                 u.add_(pf, alpha=self.weight_decay)
             pf.add_(u, alpha=-lr)
-            for stored, f in ((mu, mu_f), (nu, nu_f), (p, pf)):
-                if stored is not f:
-                    stored.copy_(f)
+            if p is not pf:
+                p.copy_(pf)
         if self.accumulation_steps > 1:
             for acc in state["acc"].values():
                 acc.zero_()
@@ -196,10 +217,8 @@ def make_optimizer(
 ) -> Optimizer:
     """The CSM training optimizer: AdamW per component with global-norm
     clipping of the raw gradients and ``accumulation_steps``-call
-    accumulation.  Moments are stored in each parameter's dtype; other
-    moment dtypes wait (ROADMAP.md A.10b)."""
-    if mu_dtype is not None or nu_dtype is not None:
-        raise _waits("Adam moments in another dtype than the params'", "A.10b")
+    accumulation.  ``mu_dtype`` / ``nu_dtype``: the moments' storage dtypes
+    (None: each parameter's; the math runs in float32 either way)."""
     if accumulation_steps < 1:
         raise ValueError(f"accumulation_steps must be >= 1, got {accumulation_steps}")
     mults = dict(DEFAULT_LR_MULTIPLIERS)
@@ -207,7 +226,22 @@ def make_optimizer(
         mults.update(lr_multipliers)
     labels = component_labels(params, freeze_backbone, freeze_decoder, freeze_embeddings)
     return Optimizer(params, learning_rate, weight_decay, max_grad_norm, mults, labels,
-                     accumulation_steps, b1, b2)
+                     accumulation_steps, b1, b2, mu_dtype, nu_dtype)
+
+
+def make_lora_optimizer(
+    learning_rate: float = 1e-4,
+    max_grad_norm: Optional[float] = 1.0,
+    weight_decay: float = 0.0,
+    accumulation_steps: int = 1,
+) -> Optimizer:
+    """The optimizer over an adapter tree: the global-norm clip, then Adam,
+    or AdamW when ``weight_decay`` is set; ``accumulation_steps`` calls to
+    an update.  Its leaves are bound at ``init``."""
+    if accumulation_steps < 1:
+        raise ValueError(f"accumulation_steps must be >= 1, got {accumulation_steps}")
+    return Optimizer(None, learning_rate, weight_decay, max_grad_norm, None, None,
+                     accumulation_steps, 0.9, 0.999)
 
 
 def init_train_state(params: Any, tx: Optimizer) -> TrainState:

@@ -7,6 +7,10 @@ update.  PyTorch runs eagerly, so a step is a Python function instead of
 one compiled program; on the card the backbone's attention runs through
 the flash kernels in both passes.
 
+``make_lora_train_step`` differentiates only an adapter tree: the frozen
+base is passed along with ``requires_grad`` off and gets neither a
+gradient nor optimizer state.
+
 Parameters update IN PLACE (``torch.no_grad`` writes into the same
 tensors): this replaces the JAX package's buffer donation, so a caller that
 needs the old values copies them first.  Metrics come back as device
@@ -95,6 +99,46 @@ def make_train_step(
             frame_scores = [frame_scores]
         metrics, grads = _accumulated_grads(
             loss_fn, state.params, generator, batch, grad_microbatches, frame_scores
+        )
+        metrics["grad_norm"] = global_norm(grads)
+        tx.update(state.params, grads, state.opt_state)
+        return TrainState(state.params, state.opt_state, state.step + 1), metrics
+
+    return step
+
+
+def make_lora_train_step(
+    args: ModelArgs,
+    tx: Optimizer,
+    lora_scale: float,
+    semantic_weight: float = 100.0,
+    acoustic_weight: float = 1.0,
+    amortization_ratio: int = 16,
+    compute_dtype=torch.bfloat16,
+    remat: bool = False,
+    lora_dropout: float = 0.0,
+    seq_mesh=None,
+    pp_mesh=None,
+) -> Callable:
+    """Returns ``step(state, base_params, generator, batch, frame_scores=None)
+    -> (state, metrics)``: the loss with the adapters ``state.params`` on
+    the frozen ``base_params``, gradients for the adapters only, the
+    optimizer (``make_lora_optimizer``) updating them in place."""
+
+    def step(state: TrainState, base_params, generator: Optional[torch.Generator], batch: Batch,
+             frame_scores=None):
+        def loss_fn(lora, generator, batch, scores):
+            return compute_loss(
+                base_params, args, generator, batch, semantic_weight=semantic_weight,
+                acoustic_weight=acoustic_weight, amortization_ratio=amortization_ratio,
+                compute_dtype=compute_dtype, remat=remat, lora=lora, lora_scale=lora_scale,
+                lora_dropout=lora_dropout, seq_mesh=seq_mesh, pp_mesh=pp_mesh,
+                frame_scores=scores,
+            )
+
+        metrics, grads = _accumulated_grads(
+            loss_fn, state.params, generator, batch, 1,
+            None if frame_scores is None else [frame_scores],
         )
         metrics["grad_norm"] = global_norm(grads)
         tx.update(state.params, grads, state.opt_state)

@@ -1,18 +1,20 @@
-"""The full-parameter trainer.
+"""The trainers: full-parameter and LoRA.
 
-The counterpart of the JAX package's ``CSMTrainer`` (``training/trainer.py``):
-an epoch loop over bucketed batches with gradient accumulation and
-clipping, periodic validation with best-checkpoint saving, periodic, epoch
-and final checkpoints, resume from ``latest``, a non-finite-loss abort that
-saves first, and sample generation through the port's ``Generator``.
+The counterparts of the JAX package's ``CSMTrainer`` and ``CSMLoRATrainer``
+(``training/trainer.py``): an epoch loop over bucketed batches with
+gradient accumulation and clipping, periodic validation with
+best-checkpoint saving, periodic, epoch and final checkpoints (written in
+the background with ``async_checkpointing``), resume from ``latest``, a
+non-finite-loss abort that saves first, and sample generation through the
+port's ``Generator``.  The LoRA trainer optimizes only an adapter tree over
+a frozen base, which it may hold quantized (int8 or int4, QLoRA).
 
 A step's loss and metrics stay on the device and are read one step later,
 while the next step is already queued, so the host never waits for the
 card on every step.  ``model_path`` loads a torchtune ``ckpt.pt`` or
 ``.safetensors`` file, or a checkpoint directory of this trainer (not the
-JAX package's orbax ones).  The LoRA trainers, device meshes and
-checkpoints written in the background wait for later slices (ROADMAP.md
-A.10b, A.11).
+JAX package's orbax ones).  Device meshes wait for a later slice
+(ROADMAP.md A.11).
 """
 
 from __future__ import annotations
@@ -27,11 +29,15 @@ import numpy as np
 import torch
 
 from csm_torch.generator import _waits
-from csm_torch.models.config import ModelArgs, csm_1b_args
+from csm_torch.models.config import ModelArgs, csm_1b_args, csm_param_count
 from csm_torch.training import checkpoint as ckpt
+from csm_torch.training import lora as lora_mod
 from csm_torch.training.dataset_utils import as_batches, prefetch_batches
-from csm_torch.training.optimizer import init_train_state, make_optimizer
-from csm_torch.training.train_step import make_eval_step, make_train_step
+from csm_torch.training.losses import compute_loss
+from csm_torch.training.optimizer import (TrainState, init_train_state, make_lora_optimizer,
+                                          make_optimizer)
+from csm_torch.training.train_step import make_eval_step, make_lora_train_step, make_train_step
+from csm_torch.utils import quantize as qz
 from csm_torch.utils.checkpoint_compat import load_torch_checkpoint
 from csm_torch.utils.device import resolve_device
 from csm_torch.utils.observability import MetricsLogger, device_memory_stats
@@ -68,8 +74,9 @@ class CSMTrainer:
     per-component multipliers, semantic/acoustic weights), plus
     ``device`` (``"cuda"`` unless the caller asks for the CPU),
     ``compute_dtype`` (activations; bf16 by default), ``param_dtype``
-    (master weights: float32 or bfloat16) and ``remat`` (recompute each
-    layer in the backward pass; on by default)."""
+    (master weights: float32 or bfloat16; a quantized projection keeps its
+    layout), ``remat`` (recompute each layer in the backward pass; on by
+    default) and ``async_checkpointing`` (``checkpoint.AsyncCheckpointWriter``)."""
 
     def __init__(
         self,
@@ -95,8 +102,6 @@ class CSMTrainer:
     ):
         if parallel is not None:
             raise _waits("training over a device mesh", "A.11")
-        if async_checkpointing:
-            raise _waits("checkpoints written in the background", "A.10b")
         if param_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype}")
         self.device = resolve_device(device)
@@ -123,13 +128,19 @@ class CSMTrainer:
         # Training updates these tensors in place: given params already on
         # the device in ``param_dtype`` are trained as they are, so a caller
         # that needs the old values passes a copy.
-        self.params = tree_map(lambda t: t.detach().to(self.device, param_dtype), params)
+        self.params = tree_map(
+            lambda t: ({k: v.detach().to(self.device) for k, v in t.items()} if isinstance(t, dict)
+                       else t.detach().to(self.device, param_dtype)),
+            params, is_leaf=lambda t: qz.is_quantized(t) or qz.is_quantized_int4(t))
         self.tx = None
         self.state = None
         self.epoch = 0
         self.global_step = 0
         self.best_val_loss = float("inf")
         self.prefetch_depth = prefetch_depth
+        # the latest pointer commits only once a checkpoint is on disk
+        self.async_checkpointing = async_checkpointing
+        self._ckpt_writer = None
         self.metrics = MetricsLogger(os.path.join(output_dir, "metrics.jsonl"))
 
     # ---- model loading ----
@@ -302,19 +313,37 @@ class CSMTrainer:
     # ---- checkpointing ----
 
     def save_checkpoint(self, name: str) -> str:
-        path = ckpt.save_checkpoint(
-            os.path.join(self.output_dir, "checkpoints"), name, self.state, self.args,
-            epoch=self.epoch, global_step=self.global_step, loss=self.best_val_loss,
-        )
-        self.logger.info(f"saved checkpoint {path}")
+        """A checkpoint of the train state (a LoRA trainer's ``params`` are
+        its adapter tree)."""
+        kw = dict(epoch=self.epoch, global_step=self.global_step, loss=self.best_val_loss)
+        ckpt_dir = os.path.join(self.output_dir, "checkpoints")
+        if self.async_checkpointing:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = ckpt.AsyncCheckpointWriter()
+            path = self._ckpt_writer.save(ckpt_dir, name, self.state, self.args, **kw)
+            self.logger.info(f"saving checkpoint {path} (async)")
+        else:
+            path = ckpt.save_checkpoint(ckpt_dir, name, self.state, self.args, **kw)
+            self.logger.info(f"saved checkpoint {path}")
         return path
 
+    def wait_for_checkpoints(self) -> None:
+        """Block until the checkpoint in flight, if any, is committed."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+
     def close(self) -> None:
-        """Flush and close the metrics file (reopened by the next log);
-        idempotent."""
-        self.metrics.close()
+        """Commit the checkpoint in flight, flush and close the metrics file
+        (reopened by the next log); idempotent."""
+        w, self._ckpt_writer = self._ckpt_writer, None
+        try:
+            if w is not None:
+                w.close()
+        finally:
+            self.metrics.close()
 
     def load_checkpoint(self, path: Optional[str] = None):
+        self.wait_for_checkpoints()  # never restore under a save in flight
         if path is None or path == "latest":
             path = ckpt.latest_checkpoint(os.path.join(self.output_dir, "checkpoints"))
             if path is None:
@@ -324,11 +353,17 @@ class CSMTrainer:
             raise ValueError("resume needs prepare_optimizer() first and a checkpoint "
                              "with optimizer state")
         self.state = state
-        self.params = state.params
+        self._restored(state)
         self.epoch = meta.get("epoch", 0)
         self.global_step = meta.get("global_step", 0)
         self.best_val_loss = meta.get("loss", float("inf"))
         self.logger.info(f"resumed from {path} (epoch {self.epoch}, step {self.global_step})")
+
+    def _restored(self, state: TrainState) -> None:
+        self.params = state.params
+
+    def _final_params(self) -> dict:
+        return self.state.params if self.state is not None else self.params
 
     # ---- sample generation ----
 
@@ -340,12 +375,163 @@ class CSMTrainer:
         from csm_torch.data.audio import save_wav
         from csm_torch.generator import Generator
 
-        params = self.state.params if self.state is not None else self.params
         gen = Generator(
-            params, self.args, mimi=mimi, text_tokenizer=text_tokenizer,
+            self._final_params(), self.args, mimi=mimi, text_tokenizer=text_tokenizer,
             compute_dtype=self.compute_dtype, device=self.device,
         )
         audio = gen.generate(text, speaker=speaker_id, max_audio_length_ms=max_audio_length_ms)
         if output_path:
             save_wav(output_path, audio, gen.sample_rate)
         return audio
+
+
+class CSMLoRATrainer(CSMTrainer):
+    """LoRA fine-tuning (reference: src/csm/training/lora_trainer.py): only
+    the adapter tree is optimized; ``save_model`` writes the ``lora``,
+    ``full`` (merged) or ``both`` artifacts.
+
+    ``quant_base`` None | "int8" | "int4" (``int8_base=True`` is "int8")
+    stores the FROZEN base's transformer stacks quantized (QLoRA): the
+    forward dequantizes in the matmul, the backward saves only the
+    quantized weights, and the adapters absorb the quantization error.  A
+    base whose bf16 tree is over 8 GiB (the 8B flavor) is made quantized
+    directly when there is no ``model_path``, and a ``.pt`` /
+    ``.safetensors`` file is quantized a few layers at a time as it is
+    loaded.  A's init draws from a generator seeded 42."""
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        output_dir: str = "./output",
+        learning_rate: float = 1e-4,
+        lora_r: int = 8,
+        lora_alpha: float = 16.0,
+        lora_dropout: float = 0.0,
+        target_modules=("q_proj", "v_proj"),
+        target_layers=None,
+        apply_to_backbone: bool = True,
+        apply_to_decoder: bool = True,
+        int8_base: bool = False,
+        quant_base: Optional[str] = None,
+        **kw,
+    ):
+        if int8_base and quant_base not in (None, "int8"):
+            raise ValueError("pass either int8_base or quant_base, not both")
+        quant_base = "int8" if int8_base else quant_base
+        if quant_base not in (None, "int8", "int4"):
+            raise ValueError(f"quant_base must be int8|int4, got {quant_base!r}")
+        self.quant_base = quant_base  # before super().__init__: _load_model reads it
+        self.int8_base = quant_base == "int8"
+        super().__init__(model_path=model_path, output_dir=output_dir,
+                         learning_rate=learning_rate, **kw)
+        # an already-quantized base (multi-speaker trainers share one) is kept
+        probe = self.params["backbone"]["wq"]
+        if quant_base == "int8" and not qz.is_quantized(probe):
+            self.params = qz.quantize_csm_params(self.params)
+        elif quant_base == "int4" and not qz.is_quantized_int4(probe):
+            self.params = qz.quantize_csm_params_int4(self.params)
+        self.lora_config = lora_mod.LoRAConfig(
+            r=lora_r, alpha=lora_alpha, dropout=lora_dropout,
+            target_modules=tuple(target_modules),
+            target_layers=None if target_layers is None else tuple(target_layers),
+            apply_to_backbone=apply_to_backbone, apply_to_decoder=apply_to_decoder,
+        )
+        self.lora_params = self.init_adapters(42)
+        eff = lora_mod.parameter_efficiency(self.params, self.lora_params)
+        self.logger.info(
+            f"LoRA r={lora_r} alpha={lora_alpha} targets={target_modules}: "
+            f"{lora_mod.count_params(self.lora_params):,} trainable params "
+            f"({eff * 100:.3f}% of base)"
+        )
+
+    def init_adapters(self, seed: int) -> dict:
+        """A fresh adapter tree of this trainer's config, A drawn from
+        ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return lora_mod.init_lora_params(gen, self.args, self.lora_config, device=self.device)
+
+    def _load_model(self, model_path, args, params):
+        if self.quant_base is not None and model_path is None and params is None:
+            a = args or csm_1b_args()
+            if 2 * csm_param_count(a) > (8 << 30):
+                # the float tree of a big flavor never exists on the card
+                self.logger.info(f"random-initializing the quantized ({self.quant_base}) base")
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                return a, qz.init_csm_params_quantized(gen, a, self.quant_base,
+                                                       device=self.device)
+        if (self.quant_base is not None and model_path is not None
+                and model_path.endswith((".pt", ".safetensors"))):
+            args = args or csm_1b_args()
+            self.logger.info(f"loading torchtune checkpoint {model_path} "
+                             f"(quantized to {self.quant_base} as it loads)")
+            host = load_torch_checkpoint(model_path, args)
+            return args, qz.quantize_csm_params_streaming(host, mode=self.quant_base,
+                                                          device=self.device)
+        return super()._load_model(model_path, args, params)
+
+    def prepare_optimizer(self, max_grad_norm: float = 1.0, accumulation_steps: int = 1,
+                          **_ignored):
+        self.tx = make_lora_optimizer(learning_rate=self.learning_rate,
+                                      max_grad_norm=max_grad_norm,
+                                      accumulation_steps=accumulation_steps)
+        self.state = init_train_state(self.lora_params, self.tx)
+        self._lora_step_fn = make_lora_train_step(
+            self.args, self.tx, self.lora_config.scaling, semantic_weight=self.semantic_weight,
+            acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
+            remat=self.remat, lora_dropout=self.lora_config.dropout,
+        )
+        scaling, base = self.lora_config.scaling, self.params
+
+        @torch.no_grad()
+        def eval_step(lora, generator, batch):
+            _, m = compute_loss(base, self.args, generator, batch,
+                                semantic_weight=self.semantic_weight,
+                                acoustic_weight=self.acoustic_weight,
+                                compute_dtype=self.compute_dtype, lora=lora, lora_scale=scaling)
+            return m
+
+        self._eval_fn = eval_step
+        return self.tx
+
+    def _run_step(self, generator, batch):
+        self.state, metrics = self._lora_step_fn(self.state, self.params, generator,
+                                                 batch.to(self.device))
+        return metrics
+
+    def _restored(self, state: TrainState) -> None:
+        self.lora_params = state.params
+
+    # ---- artifacts ----
+
+    def save_model(self, path: str, save_mode: str = "lora") -> list:
+        """``lora``: an adapter directory at ``path``; ``full``: a checkpoint
+        of the merged params at ``path``; ``both``: ``path_lora`` and
+        ``path_full``."""
+        if save_mode not in ("lora", "full", "both"):
+            raise ValueError(f"save_mode must be lora|full|both, got {save_mode!r}")
+        self.wait_for_checkpoints()
+        lora = self.state.params if self.state is not None else self.lora_params
+        out = []
+        if save_mode in ("lora", "both"):
+            p = path + ("_lora" if save_mode == "both" else "")
+            out.append(lora_mod.save_lora(p, lora, self.lora_config, self.args))
+        if save_mode in ("full", "both"):
+            merged = lora_mod.merge_lora(self.params, lora, self.lora_config)
+            p = path + ("_full" if save_mode == "both" else "")
+            out.append(ckpt.save_checkpoint(
+                os.path.dirname(p) or ".", os.path.basename(p), TrainState(merged, None, 0),
+                self.args, epoch=self.epoch, global_step=self.global_step))
+        self.logger.info(f"saved model artifacts: {out}")
+        return out
+
+    def load_lora_weights(self, path: str):
+        lora, lcfg, _ = lora_mod.load_lora(path, self.device)
+        self.lora_config = lcfg
+        self.lora_params = lora
+        if self.state is not None:
+            self.state = init_train_state(lora, self.tx)
+
+    def _final_params(self) -> dict:
+        if self.state is None:
+            return self.params
+        return lora_mod.merge_lora(self.params, self.state.params, self.lora_config)

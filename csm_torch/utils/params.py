@@ -85,3 +85,17 @@ def random_csm_params(
     does not reproduce; tests bridge JAX's tree with ``params_from_jax``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_csm_params(args, gen, dtype, device)
+
+
+def lora_from_jax(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+    """A JAX adapter tree or bank (numpy leaves; a bank's untouched component
+    is None) → the port's tree of tensors on ``device``, floating leaves
+    cast to ``dtype`` when it is given."""
+
+    def leaf(x):
+        t = host_tensor(x)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return tree_map(leaf, tree)

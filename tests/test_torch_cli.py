@@ -2,7 +2,9 @@
 
 The parsers and their defaults (the watermark is on unless
 ``--no-watermark``), the ``--tiny-test`` path writing a wav with and
-without the watermark, voice presets, the flags that wait for later slices;
+without the watermark, voice presets, ``--lora-path`` (the codes of a
+generator on the merged weights), ``--adapter`` and the stdin daemon's
+adapter lines, the HTTP daemon's ``/adapters``;
 ``csm-torch-serve`` from a request file, with ``--prefix`` (a preset's
 request equals the request with its context inlined) and ``--window``, the
 ``--follow`` stdin daemon and the ``--http`` daemon as subprocesses (port 0,
@@ -70,8 +72,62 @@ def test_voice_presets(voice, speaker, capsys):
 @pytest.mark.parametrize("flag,item", [pytest.param(["--lora-path", "adapter"], "A.10b",
                                                     id="flag1-A.10b")])
 def test_flags_of_later_slices_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """``--lora-path`` (ported with A.10b) needs the model its adapter was
+    trained for: the tiny-test model is refused with a pointer to
+    ``--flavor tiny`` (the test of the merge follows)."""
+    with pytest.raises(SystemExit, match="--flavor tiny"):
         tgenerate.main(["--tiny-test", "--device", "cpu", "--text", "hi"] + flag)
+
+
+def _adapter_dir(path, args, seed=3, shift=0.05, **cfg):
+    """A LoRA adapter directory for ``args`` with non-zero B."""
+    from csm_torch.training import lora as tlora
+
+    cfg = tlora.LoRAConfig(**{"r": 2, **cfg})
+    lo = tlora.init_lora_params(torch.Generator().manual_seed(seed), args, cfg)
+    for comp in lo.values():
+        for ad in comp.values():
+            ad["b"] += shift
+    return tlora.save_lora(str(path), lo, cfg, args), lo, cfg
+
+
+def test_generate_lora_path_codes_match_merged(tmp_path, monkeypatch):
+    """``--flavor tiny --lora-path``: the codes the CLI hands Mimi equal a
+    Generator's on the merged weights made in memory (float32, topk=1)."""
+    from csm_torch.data.tokenizers import ByteTokenizer
+    from csm_torch.models.config import tiny_file_args
+    from csm_torch.training import lora as tlora
+    from csm_torch.utils.params import cast_params, random_csm_params
+
+    args = tiny_file_args()
+    path, lo, cfg = _adapter_dir(tmp_path / "adapter", args, target_modules=("q_proj", "v_proj",
+                                                                              "down_proj"))
+    _float32_loads(monkeypatch)
+    seen = {}
+    real = tcommon.build_generator
+
+    def build(a):
+        g = real(a)
+        g.mimi = seen["cli"] = Recording(g.mimi)
+        g.mimi.decode = lambda codes: g.mimi.decoded.append(np.array(codes)) or np.zeros(
+            np.shape(codes)[1] * 1920, np.float32)
+        return g
+
+    monkeypatch.setattr(tgenerate, "build_generator", build)
+    out = str(tmp_path / "o.wav")
+    assert tgenerate.main(["--flavor", "tiny", "--lora-path", path, "--device", "cpu",
+                           "--no-watermark", "--allow-byte-tokenizer", "--text", "lora merge",
+                           "--output", out, "--max-audio-length-ms", "400", "--topk", "1",
+                           "--seed", "1"]) == 0
+    cli = seen["cli"]
+    merged = tlora.merge_lora(cast_params(random_csm_params(args, seed=0), torch.float32), lo, cfg)
+    g = tgen.Generator(merged, args, mimi=Recording(cli.inner), text_tokenizer=ByteTokenizer(),
+                       compute_dtype=torch.float32, device="cpu")
+    g.mimi.decode = lambda codes: g.mimi.decoded.append(np.array(codes)) or np.zeros(
+        np.shape(codes)[1] * 1920, np.float32)
+    g.generate("lora merge", max_audio_length_ms=400, topk=1, seed=1)
+    (got,), (want,) = cli.decoded, g.mimi.decoded
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("watermark", [True, False])
@@ -194,9 +250,30 @@ def test_serve_writes_one_wav_per_request(tmp_path, capsys, watermark):
     pytest.param(["--adapter", "a=dir"], "A.10b", id="flag5-A.10b"),
     pytest.param(["--lora-path", "dir"], "A.10b", id="flag6-A.10b")])
 def test_serve_flags_of_later_slices_raise(tmp_path, flag, item):
-    reqs = _requests(tmp_path, [{"id": 0, "text": "hi"}])
-    with pytest.raises(NotImplementedError, match=item):
-        tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs] + flag)
+    """Ported with A.10b.  ``--adapter a=DIR``: a request naming ``a``
+    decodes under it (other codes than the same request without it), one
+    naming an adapter not loaded is skipped, and a spec without '=' is
+    refused.  ``--lora-path`` needs the model its adapter was trained for:
+    the tiny-test model is refused."""
+    from csm_torch.models.config import tiny_test_args
+
+    if flag[0] == "--lora-path":
+        reqs = _requests(tmp_path, [{"id": 0, "text": "hi"}])
+        with pytest.raises(SystemExit, match="--flavor tiny"):
+            tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs] + flag)
+        return
+    path, _, _ = _adapter_dir(tmp_path / "dir", tiny_test_args(), shift=0.3,
+                              target_modules=("q_proj", "v_proj", "o_proj"))
+    lines = [{"id": "base", "text": "hello", "max_audio_length_ms": 400},
+             {"id": "tuned", "text": "hello", "max_audio_length_ms": 400, "adapter": "a"},
+             {"id": "lost", "text": "hello", "adapter": "nobody"}]
+    out = _served(tmp_path, "out", lines, "--adapter", f"a={path}")
+    assert sorted(os.listdir(out)) == ["base.wav", "tuned.wav"]
+    assert not np.array_equal(load_wav(str(out / "base.wav"))[0],
+                              load_wav(str(out / "tuned.wav"))[0])
+    reqs = _requests(tmp_path, lines[:1])
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", reqs,
+                        "--adapter", "nameless"]) == 2
 
 
 def _served(tmp_path, name, lines, *flags):
@@ -256,6 +333,115 @@ def test_serve_stream_follow_matches_the_server(tmp_path, monkeypatch, capsys):
     assert len(load_wav(str(out / "d.wav"))[0]) == 0  # its sink closed, empty
 
 
+class _Batches:
+    """A stand-in for the stdin poller: one batch of lines a poll, EOF with
+    the last."""
+
+    def __init__(self, batches):
+        self.batches = [[json.dumps(r) for r in b] for b in batches]
+
+    def poll(self):
+        b = self.batches.pop(0) if self.batches else []
+        return b, not self.batches
+
+
+def test_follow_adapter_lines(tmp_path, monkeypatch, capsys):
+    """The stdin daemon's ``load_adapter`` / ``unload_adapter`` lines and a
+    prefix registered under an adapter: a stream under the adapter is
+    served, unloading is refused while the stream or the prefix uses it
+    and done after, and a request naming it afterwards is skipped."""
+    from csm_torch.models.config import tiny_test_args
+
+    path, _, _ = _adapter_dir(tmp_path / "spk", tiny_test_args())
+    preset, _ = _voice(tmp_path)
+    batches = [
+        [{"load_adapter": {"name": "spk", "path": path}},
+         {"register_prefix": {"name": "v", "path": preset, "adapter": "spk"}},
+         {"id": "x", "text": "hello", "adapter": "spk", "max_audio_length_ms": 960},
+         {"id": "p", "text": "hi", "adapter": "spk", "prefix": "v", "max_audio_length_ms": 160}],
+        [{"unload_adapter": "spk"}],  # x decodes: refused
+        *[[]] * 12,
+        [{"unregister_prefix": "v"}],
+        [{"unload_adapter": "spk"}],
+        [{"id": "y", "text": "late", "adapter": "spk"}],
+    ]
+    monkeypatch.setattr(tserve, "_StdinPoller", lambda: _Batches(batches))
+    out = tmp_path / "followed"
+    assert tserve.main(["--tiny-test", "--device", "cpu", "--requests", "-", "--follow",
+                        "--output-dir", str(out), "--n-slots", "2", "--chunk-size", "4",
+                        "--topk", "1", "--no-watermark", "--max-seq-len", "128"]) == 0
+    err = capsys.readouterr().err
+    assert "adapter 'spk' loaded (id 1)" in err and "prefix 'v' loaded" in err
+    assert "in use by an active stream" in err
+    assert "adapter 'spk' unloaded" in err and "skipping y: unknown adapter 'spk'" in err
+    assert sorted(os.listdir(out)) == ["p.wav", "x.wav"]
+
+
+def test_http_adapters_route(tmp_path):
+    """POST /adapters loads and unloads on the drive loop's thread, /health
+    lists the adapters, a bad spec answers 400 and the daemon goes on."""
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    class Server(_FakeServer):
+        def __init__(self):
+            self._adapter_id = {}
+            self.threads = set()
+
+        def add_adapter(self, name, path):
+            self.threads.add(threading.get_ident())
+            if not os.path.isdir(path):
+                raise FileNotFoundError(path)
+            self._adapter_id[name] = len(self._adapter_id) + 1
+            return self._adapter_id[name]
+
+        def remove_adapter(self, name):
+            self.threads.add(threading.get_ident())
+            del self._adapter_id[name]
+
+        def step(self):
+            return []
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    answers = []
+
+    def post(path, body):
+        for _ in range(200):
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        url + path, data=json.dumps(body).encode()), timeout=30) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+            except OSError:
+                import time as _time
+
+                _time.sleep(0.05)
+
+    def client():
+        answers.append(post("/adapters", {"name": "a", "path": str(tmp_path)}))
+        answers.append(post("/adapters", {"name": "b", "path": str(tmp_path / "no")}))
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            answers.append(json.loads(r.read())["adapters"])
+        answers.append(post("/adapters", {"name": "a", "unload": True}))
+        post("/shutdown", {})
+
+    server = Server()
+    t = threading.Thread(target=client)
+    t.start()
+    tserve._serve_http(f"127.0.0.1:{port}", 4, server, None, None, None)
+    t.join(timeout=60)
+    assert answers[0] == (200, {"status": "loaded", "name": "a", "id": 1})
+    assert answers[1][0] == 400 and "FileNotFoundError" in answers[1][1]["error"]
+    assert answers[2] == ["a"] and answers[3] == (200, {"status": "unloaded", "name": "a"})
+    assert server.threads == {threading.get_ident()}  # the drive loop's thread only
+
+
 def test_follow_releases_the_sink_of_a_request_dropped_at_submit(monkeypatch):
     """A request refused at submit (e.g. its prefix went while it waited)
     has its sink closed (done, no frames) and released."""
@@ -280,6 +466,70 @@ def test_follow_releases_the_sink_of_a_request_dropped_at_submit(monkeypatch):
     served = tserve._serve_follow(Refusing(), lambda i, r: Req(), None, None,
                                   attach_sink=lambda sr, t: None, drop_sink=released.append)
     assert served[0] == 0 and closed == [("x", 0, True)] and released == ["x"]
+
+
+# ---------------------------------------------------------------- LoRA fine-tuning
+
+
+def _recordings(d, n=2, seconds=1.2):
+    d.mkdir(parents=True, exist_ok=True)
+    t = np.arange(int(seconds * 24_000)) / 24_000
+    for i in range(n):
+        save_wav(str(d / f"utt{i}.wav"), (0.3 * np.sin(2 * np.pi * (200 + 60 * i) * t)).astype(
+            np.float32), 24_000)
+        (d / f"utt{i}.txt").write_text(f"synthetic utterance number {i}")
+    return str(d)
+
+
+def test_finetune_lora_tiny_test(tmp_path):
+    """``csm-torch-finetune-lora --tiny-test`` over an int8 base with
+    ``--save-mode both`` and ``--async-checkpointing``: an adapter directory
+    of the requested targets, a merged checkpoint, and the run's
+    checkpoints committed; the parallelism flags still wait (A.11)."""
+    from csm_torch.cli import finetune_lora as tft
+    from csm_torch.training import lora as tlora
+
+    data, out = _recordings(tmp_path / "data"), tmp_path / "out"
+    argv = ["--audio-dir", data, "--tiny-test", "--device", "cpu", "--output-dir", str(out),
+            "--val-split", "0", "--epochs", "2", "--lora-r", "4",
+            "--target-modules", "q_proj", "v_proj", "down_proj", "--int8-base",
+            "--save-mode", "both", "--async-checkpointing"]
+    assert tft.main(argv) == 0
+    lo, cfg, _ = tlora.load_lora(str(out / "adapter_lora"))
+    assert cfg.r == 4 and cfg.projections == ("wq", "wv", "w2") and set(lo) == {"backbone",
+                                                                                 "decoder"}
+    meta = json.load(open(out / "adapter_full" / "meta.json"))
+    assert meta["global_step"] == 2
+    assert json.load(open(out / "checkpoints" / "latest.json")) == {"latest": "final"}
+    with pytest.raises(NotImplementedError, match="A.11"):
+        tft.main(argv + ["--fsdp"])
+    a = tft.build_parser().parse_args(["--audio-dir", "d"])
+    assert (a.lora_r, a.lora_alpha, a.target_modules, a.save_mode, a.device, a.learning_rate) == (
+        8, 16.0, ["q_proj", "v_proj"], "lora", "cuda", 1e-4)
+
+
+def test_finetune_lora_multi_tiny_test(tmp_path):
+    """``csm-torch-finetune-lora-multi --tiny-test``: two speakers from a
+    speakers config (one overriding the rank), an adapter each and a
+    summary; a config missing a field is refused."""
+    from csm_torch.cli import finetune_lora_multi as tmulti
+    from csm_torch.training import lora as tlora
+
+    speakers = [{"name": f"s{i}", "speaker_id": i, "audio_dir": _recordings(tmp_path / f"d{i}"),
+                 "transcript_dir": str(tmp_path / f"d{i}")} for i in range(2)]
+    speakers[1]["lora_r"] = 2
+    cfg_path = tmp_path / "speakers.json"
+    cfg_path.write_text(json.dumps(speakers))
+    out = tmp_path / "out"
+    assert tmulti.main(["--speakers-config", str(cfg_path), "--tiny-test", "--device", "cpu",
+                        "--output-dir", str(out), "--val-split", "0"]) == 0
+    summary = json.load(open(out / "summary.json"))
+    assert [e["name"] for e in summary] == ["s0", "s1"]
+    assert all(np.isfinite(e["final_loss"]) for e in summary)
+    assert [tlora.load_lora(str(out / f"s{i}" / "adapter"))[1].r for i in range(2)] == [8, 2]
+    cfg_path.write_text(json.dumps([{"name": "x"}]))
+    with pytest.raises(ValueError, match="missing field"):
+        tmulti.main(["--speakers-config", str(cfg_path), "--tiny-test", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------- prefixes, windows, daemons
@@ -515,6 +765,7 @@ class _FakeServer:
     n_slots = 2
     active = np.zeros(2, bool)
     _prefixes = {}
+    _adapter_id = {}
 
 
 def _drive(handler, method, path, body=b""):

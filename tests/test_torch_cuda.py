@@ -1008,3 +1008,148 @@ def test_checkpoint_loads_on_the_card(cuda, tmp_path, suffix):
     assert torch.equal(g.params["audio_head"], want["audio_head"])
     audio = g.generate("from a file", max_audio_length_ms=240, topk=1)
     assert audio.shape == (3 * 1920,) and np.isfinite(audio).all()
+
+
+# ---------------------------------------------------------------- multi-LoRA and QLoRA
+
+
+_ALL7 = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def _tiny_adapter(args, dev, seed, **cfg):
+    """(adapter tree, LoRAConfig, None) with B drawn N(0, 0.05^2)."""
+    from csm_torch.training import lora as tlora
+
+    lcfg = tlora.LoRAConfig(**cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = tlora.init_lora_params(gen, args, lcfg, device=dev)
+    for comp in lo.values():
+        for ad in comp.values():
+            ad["b"].normal_(0.0, 0.05, generator=gen)
+    return lo, lcfg, None
+
+
+def _bank_requests(args, specs, names):
+    reqs = _serving_requests(args, specs)
+    for i, r in enumerate(reqs):
+        r.adapter = names[i % len(names)]
+    return reqs
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_bank_server_graphs_match_eager(cuda, mode, pipelined):
+    """A bank of three adapters (r=4 on q/v, r=2 on all seven, decoder-only)
+    through the server's CUDA graphs against the same server without them,
+    topk=50 on one seed: the same codes for six requests over ids 0-3 and
+    four slots (admission, compaction, a flash prefill), and the same
+    launch counts."""
+    from csm_torch.models import generation as tgen
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "int4" if mode == "int4" else "bf16", 256)
+    bank = {"a": _tiny_adapter(args, cuda, 1, r=4), "b": _tiny_adapter(args, cuda, 2, r=2,
+                                                                      target_modules=_ALL7),
+            "d": _tiny_adapter(args, cuda, 3, r=4, apply_to_backbone=False)}
+    specs = [(20, 0, 9), (33, 1, 5), (150, 2, 12), (40, 3, 7), (12, 4, 3), (25, 5, 10)]
+    got = {}
+    for graphs in (True, False):
+        server = BatchedServer(params, args, n_slots=4, max_seq_len=512, temperature=0.9,
+                               topk=50, chunk_size=4, compute_dtype=torch.bfloat16,
+                               pipelined=pipelined, adapters=bank, device=cuda)
+        if not graphs:
+            server.graphs = False
+        else:
+            server.warmup()
+            assert server.captures > 0
+        server.reset(seed=7)
+        before = tgen._counts()
+        results, _ = server.run(_bank_requests(args, specs, [None, "a", "b", "d"]))
+        torch.cuda.synchronize()
+        got[graphs] = ({r.request_id: r.frames for r in results},
+                       [a - b for a, b in zip(tgen._counts(), before)])
+        server.close()
+    (codes_g, counts_g), (codes_e, counts_e) = got[True], got[False]
+    assert set(codes_g) == set(range(6))
+    for rid in codes_e:
+        np.testing.assert_array_equal(codes_g[rid], codes_e[rid])
+    assert counts_g == counts_e and counts_g[0] > 0 and counts_g[1] == args.backbone.num_layers
+    assert (counts_g[2] > 0) == (mode == "int4")
+
+
+def test_bank_swap_in_place_during_a_pipelined_chunk(cuda):
+    """A pipelined graph server with a chunk in flight: removing an unused
+    adapter from the middle of the bank and adding another into its id
+    copies into the same bank tensors on the serving stream, with no
+    capture, and every stream's codes equal the run without the swap; an
+    adapter of a larger rank then replaces the bank, retakes the captures at
+    their next use and serves like a server built with it."""
+    from csm_torch.serving import BatchedServer
+
+    args, params = _tiny_generation(cuda, "bf16", 64)
+    mk = lambda seed, r=4: _tiny_adapter(args, cuda, seed, r=r)  # noqa: E731
+    server = BatchedServer(params, args, n_slots=4, max_seq_len=128, temperature=0.9, topk=50,
+                           chunk_size=4, compute_dtype=torch.bfloat16, pipelined=True,
+                           adapters={"a": mk(1), "c": mk(2), "b": mk(3)}, device=cuda)
+    server.warmup()
+    ptrs = {n: ad["b"].data_ptr() for n, ad in server.bank["backbone"].items()}
+    specs = [(20, 0, 14), (33, 1, 11), (12, 2, 13), (25, 3, 9)]
+    runs = []
+    for swap in (False, True):
+        server.reset(seed=5)
+        for r in _bank_requests(args, specs, [None, "a", "b"]):
+            assert server.submit(r) is not None
+        done = server.step()
+        assert server._inflight is not None  # a chunk in flight
+        c0 = server.captures
+        if swap:
+            server.remove_adapter("c")
+            assert server.add_adapter("e", mk(4)) == 2
+            with pytest.raises(ValueError, match="in use"):
+                server.remove_adapter("a")
+        done += server.run([])[0]
+        runs.append({r.request_id: r.frames for r in done})
+        assert server.captures == c0
+    assert {n: ad["b"].data_ptr() for n, ad in server.bank["backbone"].items()} == ptrs
+    for rid, f in runs[0].items():
+        np.testing.assert_array_equal(runs[1][rid], f)
+    wide = mk(5, r=32)
+    server.add_adapter("wide", wide)
+    c0 = server.captures
+    server.reset(seed=5)
+    res, _ = server.run(_bank_requests(args, specs[:2], ["wide", "e"]))
+    assert server.captures > c0
+    ref = BatchedServer(params, args, n_slots=4, max_seq_len=128, temperature=0.9, topk=50,
+                        chunk_size=4, compute_dtype=torch.bfloat16, pipelined=True,
+                        adapters={"a": mk(1), "e": mk(4), "b": mk(3), "wide": wide}, device=cuda)
+    ref.reset(seed=5)
+    want, _ = ref.run(_bank_requests(args, specs[:2], ["wide", "e"]))
+    torch.cuda.synchronize()
+    want = {r.request_id: r.frames for r in want}
+    for r in res:
+        np.testing.assert_array_equal(r.frames, want[r.request_id])
+    server.close()
+    ref.close()
+
+
+def test_int8_matmul_function_matches_autograd(cuda):
+    """The int8 base's ``autograd.Function`` on the card in bf16: output and
+    input gradient equal autograd through ``(x @ w8.to(bf16)) * scale``
+    bit for bit, and the backward saves the int8 weight and its scales."""
+    from csm_torch.models.llama import _proj
+    from csm_torch.utils.quantize import quantize_weight
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = quantize_weight(torch.randn(2048, 512, generator=gen, device=cuda))
+    x = torch.randn(2, 256, 2048, generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(2, 256, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        y = _proj(x, q)
+    (dx,) = torch.autograd.grad(y, x, g)
+    x2 = x.detach().clone().requires_grad_()
+    y2 = (x2 @ q["w8"].to(x2.dtype)) * q["scale"].to(x2.dtype)
+    (dx2,) = torch.autograd.grad(y2, x2, g)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(dx, dx2, rtol=0, atol=0)
+    assert {t.dtype for t in saved} == {torch.int8, torch.bfloat16}

@@ -126,14 +126,36 @@ def test_prompt_length_contract(pair):
         gt.generate("x" * 200, max_audio_length_ms=400)
 
 
-def test_unported_branches_raise():
-    """Branches of later slices raise and name their ROADMAP item; the
-    quantized modes and the 8B flavor's loader are ported (their tests are
-    in tests/test_torch_quantize.py)."""
+def test_unported_branches_raise(tmp_path):
+    """Meshes wait and name their ROADMAP item (A.11).  ``lora_path`` is
+    ported: the adapter merges into the cast weights before the
+    quantization (int4: the merged weights quantized), and an adapter of
+    another model shape is refused.  The quantized modes and the 8B
+    flavor's loader have their tests in tests/test_torch_quantize.py."""
+    from csm_torch.models.csm import fuse_csm_params
+    from csm_torch.training import lora as tlora
+    from csm_torch.utils import quantize as tq
+    from csm_torch.utils.params import random_csm_params
+
     args = tconfig.tiny_test_args()
-    for kw in (dict(lora_path="x"), dict(lora_path="x", ckpt_path="x.pt", quantize="int4")):
-        with pytest.raises(NotImplementedError, match="A.10b"):
-            tgen.load_csm(args=args, device="cpu", **kw)
+    cfg = tlora.LoRAConfig(r=2, target_modules=("q_proj", "down_proj"))
+    lo = tlora.init_lora_params(torch.Generator().manual_seed(3), args, cfg)
+    for comp in lo.values():
+        for ad in comp.values():
+            ad["b"] += 0.05
+    path = tlora.save_lora(str(tmp_path / "adapter"), lo, cfg, args)
+    merged = tlora.merge_lora(random_csm_params(args, seed=0), lo, cfg)
+    for qmode, want in (("none", merged), ("int4", tq.quantize_csm_params_int4(merged))):
+        g = tgen.load_csm(args=args, device="cpu", lora_path=path, quantize=qmode,
+                          compute_dtype=torch.float32, text_tokenizer=ByteTokenizer())
+        got, want_f = g.params["backbone"]["wqkv"], fuse_csm_params(want)["backbone"]["wqkv"]
+        for k in (got if isinstance(got, dict) else {"w": got}):
+            a = got[k] if isinstance(got, dict) else got
+            b = want_f[k] if isinstance(want_f, dict) else want_f
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"{qmode} {k}")
+    tlora.save_lora(str(tmp_path / "other"), lo, cfg, tconfig.tiny_file_args())
+    with pytest.raises(ValueError, match="different model shape"):
+        tgen.load_csm(args=args, device="cpu", lora_path=str(tmp_path / "other"))
     with pytest.raises(ValueError, match="quantize='int8' or 'int4'"):
         tgen.load_csm(args=tconfig.csm_8b_args(), device="cpu")
     g = tgen.load_csm(args=args, device="cpu", text_tokenizer=ByteTokenizer())

@@ -427,19 +427,30 @@ def test_pipelined_ramp_keeps_first_read():
 
 
 @pytest.mark.parametrize("what", ["mesh", "adapters", "add_adapter", "request_adapter"])
-def test_unported_surfaces_raise(what):
-    if what in ("mesh", "adapters"):
+def test_unported_surfaces_raise(what, tmp_path):
+    """Meshes wait (A.11).  The adapter surfaces are ported (their tests
+    against the JAX server are in test_torch_adapter_bank.py): an adapter
+    directory that is not there is refused at construction and at
+    ``add_adapter``, and a request naming an adapter that is not loaded is
+    refused at submit, leaving the server idle."""
+    missing = str(tmp_path / "nowhere")
+    if what == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port_server(n_slots=1, max_seq_len=96, **{what: {"mesh": object(),
-                                                             "adapters": {"a": "p"}}[what]})
+            port_server(n_slots=1, max_seq_len=96, mesh=object())
+        return
+    if what == "adapters":
+        with pytest.raises(FileNotFoundError):
+            port_server(n_slots=1, max_seq_len=96, adapters={"a": missing})
         return
     server = port_server(n_slots=1, max_seq_len=96)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "add_adapter":
-            server.add_adapter("a", "path")
-        else:
-            r = make_request(6, 0, 1)
-            r.adapter = "x"
+    if what == "add_adapter":
+        with pytest.raises(FileNotFoundError):
+            server.add_adapter("a", missing)
+        assert server.bank is None and not server._adapter_id
+    else:
+        r = make_request(6, 0, 1)
+        r.adapter = "x"
+        with pytest.raises(ValueError, match="unknown adapter 'x'"):
             server.submit(r)
     assert not server.active.any()
 

@@ -202,8 +202,21 @@ def test_nonfinite_abort_saves_recoverable_state(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        make_trainer(str(tmp_path), async_checkpointing=True)
+    """Checkpoints written in the background (``async_checkpointing``): a
+    run's checkpoints are all committed once ``train`` returns, and resume
+    from them; device meshes still wait (A.11)."""
+    out = str(tmp_path / "async")
+    tr = make_trainer(out, async_checkpointing=True)
+    data = tiny_batches(2)
+    assert np.isfinite(tr.train(data, batch_size=2, epochs=2, save_every=1))
+    ckpt_dir = os.path.join(out, "checkpoints")
+    assert tckpt.latest_checkpoint(ckpt_dir).endswith("final")
+    for name in ("step_1", "step_2", "epoch_0", "epoch_1", "final"):
+        assert os.path.exists(os.path.join(ckpt_dir, name, "meta.json")), name
+    tr2 = make_trainer(out, async_checkpointing=True)
+    tr2.prepare_optimizer()
+    tr2.load_checkpoint("latest")
+    assert tr2.global_step == tr.global_step > 0
     with pytest.raises(NotImplementedError, match="A.11"):
         make_trainer(str(tmp_path), parallel=object())
 

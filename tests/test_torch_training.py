@@ -185,10 +185,32 @@ def test_optimizer_matches_optax(tiny, kw, n_steps):
         assert "backbone/wq" not in tstate["mu"]
 
 
-def test_optimizer_refuses_what_waits():
-    params = {"decoder": {"w": torch.zeros(2)}}
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        topt.make_optimizer(params, mu_dtype=torch.bfloat16)
+def test_optimizer_refuses_what_waits(tiny):
+    """Adam moments stored in other dtypes (bf16 mu, f32 nu; bf16 both):
+    the moments keep their dtype and three updates agree with optax's
+    make_optimizer of the same dtypes (the update reads the moments as
+    stored in both) to 1e-6 relative, or within one bf16 rounding of a
+    moment a step: 2^-8 of the learning rate, times the three steps."""
+    _, _, jparams = tiny
+    for mu, nu in ((torch.bfloat16, None), (torch.bfloat16, torch.bfloat16)):
+        jdt = {torch.bfloat16: jnp.bfloat16, None: None}
+        opts = dict(learning_rate=1e-2, weight_decay=0.01, max_grad_norm=1.0)
+        jtx = jopt.make_optimizer(jparams, mu_dtype=jdt[mu], nu_dtype=jdt[nu], **opts)
+        jp = jax.tree.map(jnp.asarray, jparams)
+        jstate = jtx.init(jp)
+        tp = params_from_jax(jparams)
+        ttx = topt.make_optimizer(tp, mu_dtype=mu, nu_dtype=nu, **opts)
+        tstate = ttx.init(tp)
+        for i in range(3):
+            g = random_grads(jparams, seed=30 + i)
+            updates, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
+            jp = optax.apply_updates(jp, updates)
+            ttx.update(tp, [torch.from_numpy(x) for x in jax.tree.leaves(g)], tstate)
+        for (path, a), b in zip(topt.named_leaves(tp), jax.tree.leaves(jp)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=OPT_TOL,
+                                       atol=3 * 2**-8 * 1e-2, err_msg=path)
+        assert tstate["mu"]["decoder/wq"].dtype == mu
+        assert tstate["nu"]["decoder/wq"].dtype == (nu or torch.float32)
 
 
 def test_grad_microbatches_equal_one_batch(tiny):
