@@ -60,7 +60,7 @@ is wrong:
      63 frames a request, 2 x n_slots requests, a 1024-column cache, chunk
      8, temperature 0.9, topk 50) through the CUDA graphs ``warmup``
      captures: bf16 at 8 and 64 slots, synchronous and pipelined, the
-     8-slot run also without graphs in turns with the graph run and a window
+     8-slot run also without graphs (8 requests) after it and a window
      of 256-bucket prompts (flash prefill); the int8 KV cache and int4
      weights at 8 slots; 8B int4 at 8 slots.  Every request completes with
      codes in range, every slot frees, the launches equal what the steps
@@ -146,7 +146,23 @@ is wrong:
      frame scores: loss and gradients agree;
   9. the weight-streaming probe ``csm_torch.scripts.bench_matvec`` at CSM-1B
      width (16 layers, 1.95 GB of bf16 weights): every variant's parity and
-     finite chain, 64 matvec kernel launches a pass, ms and GB/s of each.
+     finite chain, 64 matvec kernel launches a pass, ms and GB/s of each;
+  10. training over a mesh of ranks: the flash kernels on ring chunks
+     against their plain versions (a zigzag chunk whose key tiles jump, and
+     a chunk that sees no key: zeros, L_EMPTY and exactly zero gradients);
+     then this process frees its memory and starts 2 and then 4 ranks as
+     child processes sharing this card over a gloo group (collectives
+     through host memory): float32 witnesses (TF32 off) at CSM-1B width
+     with 2 layers, B=2, T=512 — DP, TP+FSDP, PP (2 microbatches), SP
+     contiguous and zigzag on 2 ranks, SP zigzag on 4 — each held against
+     the single-process step on the card (loss, gradients, parameters after
+     two steps), and bf16 figures at full CSM-1B (remat, float32 master
+     weights): DP (B=2 a rank), TP=2 + FSDP, PP=2 at T=512, SP=2 at T=2048
+     zigzag, SP=4 with LoRA r=8 on q/v over a bf16 base at T=2048 — ms a
+     step, trained frames/s, peak memory a rank, and flash launches a step
+     held to the layout's count;
+  11. the native audio loader built on this host, against the plain route
+     on a 10 s and a 60 s 44.1 kHz stereo WAV, both timed.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details go to chiprun_out/chip_smoke.json.
@@ -1629,7 +1645,7 @@ def phase_quantized(details):
     short = ("int4_generate_short", lambda: [gen.generate(SHORT_TEXT, max_audio_length_ms=2000)], 1)
     batch = ("int4_generate_batch",
              lambda: gen.generate_batch(BATCH_TEXTS, [0, 1], max_audio_length_ms=2000), 2)
-    compare_loops("int4", gen, [short], details)
+    compare_loops("int4", gen, [short], details, reps=1)  # one pair: the time budget
     batch[1]()  # captures the batch key
     torch.cuda.reset_peak_memory_stats()
     got = drive("int4", gen, [short, batch], args, details, ("int4_matmul", "decode_attention"))
@@ -1649,7 +1665,7 @@ def phase_quantized(details):
     details["int4_8b_load_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     run8 = ("int4_8b_generate",
             lambda: [gen.generate("The eight billion flavor speaks.", max_audio_length_ms=1000)], 1)
-    compare_loops("int4_8b", gen, [run8], details)
+    compare_loops("int4_8b", gen, [run8], details, reps=1)
     torch.cuda.reset_peak_memory_stats()
     drive("int4_8b", gen, [run8], args8, details, ("int4_matmul", "decode_attention"))
     details["int4_8b_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1722,7 +1738,7 @@ def kv_int8_vs_bf16(args, tok, details):
             f"frames/s " + " ".join(f"{x:.2f}" for x in r["frames_per_s"]))
     run = ("kv_int8_generate", lambda: [gen8.generate("A short quantized line.",
                                                       max_audio_length_ms=800)], 1)
-    compare_loops("kv_int8", gen8, [run], details)
+    compare_loops("kv_int8", gen8, [run], details, reps=1)
     got = drive("kv_int8", gen8, [run], args, details,
                 ("decode_attention", "decode_attention_int8"), kv_int8=True)
     free(gen16)
@@ -2196,15 +2212,15 @@ def phase_serving(details):
 
     def in_turns(name, server, warmup_s, args, between=None):
         """One server (its graphs shared by both modes), the protocol's
-        requests synchronous, pipelined, pipelined, synchronous; ``between``
-        runs after the first two; then each mode's cancel check."""
+        requests synchronous, then pipelined; ``between`` runs after them;
+        then each mode's cancel check.  (Each mode runs once: the
+        script's time budget.)"""
         reqs = serve_requests(args, 2 * server.n_slots)
-        for i, pipelined in enumerate((False, True, True, False)):
-            if i == 2 and between is not None:
-                between()
+        for pipelined in (False, True):
             server.pipelined = pipelined
-            window(name + ("_pipelined" if pipelined else "") + ("_again" if i >= 2 else ""),
-                   server, warmup_s, args, reqs)
+            window(name + ("_pipelined" if pipelined else ""), server, warmup_s, args, reqs)
+        if between is not None:
+            between()
         for pipelined in (False, True):
             server.pipelined = pipelined
             details["serving"][name + ("_pipelined" if pipelined else "")]["cancel_kept"] = (
@@ -2227,9 +2243,9 @@ def phase_serving(details):
     # without graphs between them; 256-bucket prompts (flash); a profile
     graphs, warmup_g = make(params, args, 8)
 
-    def eager_run():
+    def eager_run():  # one batch of 8 requests: the script's time budget
         eager, warmup_e = make(params, args, 8, graphs=False)
-        window("bf16_8_eager", eager, warmup_e, args, serve_requests(args, 16))
+        window("bf16_8_eager", eager, warmup_e, args, serve_requests(args, 8))
         eager.close()
 
     in_turns("bf16_8", graphs, warmup_g, args, between=eager_run)
@@ -2808,9 +2824,14 @@ def serve_cmd(*argv):
             *argv]
 
 
-def daemons(details):
+def daemons(details, meanwhile=None):
     """``csm-torch-serve`` at CSM-1B width (random weights) as two
-    subprocesses started together: ``--http 127.0.0.1:0 --warmup`` with a
+    subprocesses started together.  ``meanwhile(idle)`` runs in this
+    process while they start; ``idle()`` waits until both are up and idle
+    (``--http`` serving, ``--follow`` past its model load with nothing fed
+    yet), so that work timed after it shares the card with neither; the
+    daemons get their first request after ``meanwhile`` returns.
+    ``--http 127.0.0.1:0 --warmup`` with a
     preset and a LoRA adapter (``--adapter spk=DIR``), answering 8
     concurrent POST /generate (4 naming the preset), each a watermarked wav
     of its 20 frames, then POST /adapters loading a second adapter, one POST
@@ -2819,6 +2840,7 @@ def daemons(details):
     ``--follow`` fed JSONL over a pipe in two writes, each wav written as
     its request ends, exit 0 at EOF."""
     import io
+    import os
     import re
     import tempfile
     import threading
@@ -2842,29 +2864,45 @@ def daemons(details):
         follow = subprocess.Popen(serve_cmd("--requests", "-", "--follow", "--output-dir", d,
                                             "--max-seq-len", "256", "--no-watermark"),
                                   cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=dict(os.environ, PYTHONUNBUFFERED="1"))
         try:
-            out, port = [], {}
+            out, follow_out0, port = [], [], {}
 
-            def read():
-                for line in http.stdout:
-                    out.append(line)
-                    m = re.search(r"Serving on http://127\.0\.0\.1:(\d+)", line)
+            def read(proc, lines, pattern, key):
+                for line in proc.stdout:
+                    lines.append(line)
+                    m = re.search(pattern, line)
                     if m:
-                        port["n"] = int(m.group(1))
+                        port[key], port[key + "_s"] = m.group(1), time.perf_counter() - t0
                         return
 
-            reader = threading.Thread(target=read, daemon=True)
-            reader.start()
+            readers = [threading.Thread(target=read, daemon=True, args=a) for a in (
+                (http, out, r"Serving on http://127\.0\.0\.1:(\d+)", "http"),
+                (follow, follow_out0, r"(Model ready)", "follow"))]
+            for r in readers:
+                r.start()
+
+            def idle():
+                if "idle_at_s" in port:
+                    return
+                t_wait = time.perf_counter()
+                for r in readers:
+                    r.join(timeout=300)
+                if "http" not in port or "follow" not in port:
+                    raise AssertionError("daemon: not up:\n" + "".join(out + follow_out0))
+                port["idle_at_s"] = time.perf_counter() - t0
+                port["waited_s"] = time.perf_counter() - t_wait
+
+            if meanwhile is not None:
+                meanwhile(idle)
+            idle()
+            up_s = port["http_s"]
             lines = [json.dumps({"id": f"f{i}", "text": f"Line {i} from the pipe.",
                                  "max_audio_length_ms": 80 * (10 + i)}) for i in range(8)]
             follow.stdin.write("\n".join(lines[:4]) + "\n")
             follow.stdin.flush()
-            reader.join(timeout=300)
-            if "n" not in port:
-                raise AssertionError("daemon: --http never served:\n" + "".join(out))
-            up_s = time.perf_counter() - t0
-            base = f"http://127.0.0.1:{port['n']}"
+            base = f"http://127.0.0.1:{port['http']}"
             answers = {}
 
             def post(i, adapter=None):
@@ -2915,7 +2953,7 @@ def daemons(details):
             urllib.request.urlopen(urllib.request.Request(base + "/shutdown", data=b""), timeout=60)
             http_out = "".join(out) + http.communicate(timeout=300)[0]
             follow.stdin.write("\n".join(lines[4:]) + "\n")
-            follow_out = follow.communicate(timeout=300)[0]
+            follow_out = "".join(follow_out0) + follow.communicate(timeout=300)[0]
         finally:
             for p in (http, follow):
                 if p.poll() is None:
@@ -2931,8 +2969,12 @@ def daemons(details):
             audio, sr = load_wav(str(Path(d) / f"f{i}.wav"))
             if sr != 24_000 or len(audio) != (10 + i) * 1920:
                 raise AssertionError(f"daemon: --follow wrote {len(audio)} samples for f{i}")
-    details["daemons"] = {"http_up_s": up_s, "http_answer_8_s": answer_s, "health": health}
-    log(f"daemons: --http --adapter up (weights, warmup, captures) in {up_s:.1f} s, 8 concurrent "
+    details["daemons"] = {"http_up_s": up_s, "follow_ready_s": port["follow_s"],
+                          "idle_at_s": port["idle_at_s"], "waited_s": port["waited_s"],
+                          "http_answer_8_s": answer_s, "health": health}
+    log(f"daemons: --follow ready in {port['follow_s']:.1f} s, both idle at "
+        f"{port['idle_at_s']:.1f} s (waited {port['waited_s']:.1f} s before the timed windows); "
+        f"--http --adapter up (weights, warmup, captures) in {up_s:.1f} s, 8 concurrent "
         f"POSTs answered in {answer_s:.2f} s, POST /adapters loaded and unloaded a second "
         f"adapter, a POST under each adapter answered, /health {health}; --follow wrote 8 wavs, "
         f"both exited 0")
@@ -2959,23 +3001,30 @@ def phase_prefix_window(details):
     params = random_csm_params(args, seed=0, device="cuda")
     t = {}
     t0 = time.perf_counter()
-    prefix_float32(params, args, details)
-    t["prefix_float32"] = time.perf_counter() - t0
-    window_float32(params, args, details)
-    t["window_float32"] = time.perf_counter() - t0 - sum(t.values())
-    lazy_capture(params, args, details)
-    t["lazy_capture"] = time.perf_counter() - t0 - sum(t.values())
-    params = cast_params(params, torch.bfloat16)
-    gc.collect()
-    torch.cuda.empty_cache()
-    prefix_bf16(params, args, details, total)
-    t["prefix_bf16"] = time.perf_counter() - t0 - sum(t.values())
-    window_bf16(params, args, details, total)
-    t["window_bf16"] = time.perf_counter() - t0 - sum(t.values())
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    daemons(details)
+
+    def serving_runs(idle):  # while the daemons start: their start-up overlaps only the
+        nonlocal params  # float32 witnesses, which are not timed
+        prefix_float32(params, args, details)
+        t["prefix_float32"] = time.perf_counter() - t0
+        window_float32(params, args, details)
+        t["window_float32"] = time.perf_counter() - t0 - sum(t.values())
+        lazy_capture(params, args, details)
+        t["lazy_capture"] = time.perf_counter() - t0 - sum(t.values())
+        params = cast_params(params, torch.bfloat16)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t["cast"] = time.perf_counter() - t0 - sum(t.values())
+        idle()  # both daemons up and idle before the first timed window
+        t["daemons_idle_wait"] = time.perf_counter() - t0 - sum(t.values())
+        prefix_bf16(params, args, details, total)
+        t["prefix_bf16"] = time.perf_counter() - t0 - sum(t.values())
+        window_bf16(params, args, details, total)
+        t["window_bf16"] = time.perf_counter() - t0 - sum(t.values())
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    daemons(details, meanwhile=serving_runs)
     t["daemons"] = time.perf_counter() - t0 - sum(t.values())
     details["prefix_window_s"] = t
     details["prefix_window_launches"] = total
@@ -4093,6 +4142,360 @@ def phase_matvec_probe(details):
     return got["matvec"]
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+# Training over a mesh of ranks.  One card: every rank is a process on
+# cuda:0 and the group is gloo, so the collectives go through host memory
+# (parallel/distributed.py); nothing here measures NVLink or scaling.
+# Float32 witnesses (TF32 off) at CSM-1B width with two layers, B=2, T=512,
+# against the single-process step on the card (rank 0 alone, first, through
+# make_train_step with no mesh): the JAX package's parallel-test tolerances
+# for the loss and gradients; each parameter after two AdamW steps within
+# 2e-5, or within what the measured gradient noise lets its two updates
+# move where that is more (parallel/witness.compare; the counts held to
+# 2e-5 and to 2·lr or more printed).
+MESH_T = 512
+MESH_LR = 1e-3
+MESH_TOL = dict(loss_rtol=2e-4, grad_atol=5e-4, grad_rtol=1e-3, param_atol=2e-5, lr=MESH_LR)
+MESH_STEPS = 2  # bf16 figures: the first step pays for set-up, the second is timed
+MESH_TIMEOUT_S = 420
+
+
+def mesh_args(layers=None):
+    """CSM-1B, its backbone and decoder cut to ``layers`` layers."""
+    import dataclasses
+
+    from csm_torch import csm_1b_args
+
+    a = csm_1b_args()
+    if layers is None:
+        return a
+    cut = lambda c: dataclasses.replace(c, num_layers=layers)  # noqa: E731
+    return dataclasses.replace(a, backbone_config=cut(a.backbone), decoder_config=cut(a.decoder))
+
+
+def mesh_batch(args, B, T, seed):
+    """A (B, T) batch in the training layout (half text, half audio frames;
+    position t predicts the frame at t+1), random tokens from ``seed``."""
+    import numpy as np
+    import torch
+
+    from csm_torch.training.losses import Batch
+
+    rng = np.random.default_rng(seed)
+    K = args.audio_num_codebooks
+    tokens = np.zeros((B, T, K + 1), np.int32)
+    tokens_mask = np.zeros((B, T, K + 1), bool)
+    targets = np.zeros((B, T, K), np.int32)
+    target_mask = np.zeros((B, T), bool)
+    h = T // 2
+    tokens[:, :h, -1] = rng.integers(1, args.text_vocab_size, (B, h))
+    tokens_mask[:, :h, -1] = True
+    audio = rng.integers(0, args.audio_vocab_size - 3, (B, T - h, K))
+    tokens[:, h:, :K], tokens_mask[:, h:, :K] = audio, True
+    targets[:, h - 1:T - 1], target_mask[:, h - 1:T - 1] = audio, True
+    return Batch(*map(torch.from_numpy, (tokens, tokens_mask, targets, target_mask)))
+
+
+def mesh_scores(B, T, seed):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).random(B * T).astype(np.float32))
+
+
+def expected_mesh_launches(kind, L, n=2, M=2, P=2) -> dict:
+    """A rank's flash launches in one remat step at T >= 256: DP and TP run
+    every layer (TP on its heads): ``expected_train_launches``; a pipeline
+    stage runs its L/P layers at every one of the M + P - 1 schedule steps;
+    the ring runs n chunk attentions a layer."""
+    if kind == "pp":
+        runs = (L // P) * (M + P - 1)
+        return {"flash_attention_fwd": 2 * runs, "flash_attention_bwd_dq": runs,
+                "flash_attention_bwd_dkv": runs}
+    if kind == "sp":
+        return {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dq": L * n,
+                "flash_attention_bwd_dkv": L * n}
+    return expected_train_launches(L)
+
+
+def bwd_check(name, args, drop_check=True):
+    """Both backward kernels against their plain versions in bf16 on the
+    backward's ``args`` (phase 3's tolerance; a dropped key tile must fail
+    it).  Returns {"dq", "dk", "dv"}: max |kernel - plain|."""
+    import torch
+
+    from csm_torch.ops import flash_attention as fa
+
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    want = (fa.flash_bwd_dq_plain(*args), *fa.flash_bwd_dkv_plain(*args))
+    dropped = dropped_tile(args)
+    drop = (fa.flash_bwd_dq_plain(*dropped), *fa.flash_bwd_dkv_plain(*dropped))
+    errs = {}
+    for what, got, ref, dr, flips in zip(("dq", "dk", "dv"), (dq, dk, dv), want, drop,
+                                         bwd_flip_allowance(args)):
+        rms = ref.float().pow(2).mean().sqrt().item()
+        if not rms > 0:
+            raise AssertionError(f"{name} {what}: the plain gradient is zero")
+        tol = BWD_REL_ATOL * rms + flips + BF16_RTOL * ref.float().abs()
+        err = (got.float() - ref.float()).abs()
+        used, moved = (err / tol).max().item(), ((dr.float() - ref.float()).abs() / tol).max().item()
+        if not torch.isfinite(got.float()).all() or used > 1:
+            raise AssertionError(f"{name} {what}: max |kernel - plain| = {err.max().item():.3e}, "
+                                 f"{used:.2f}x the tolerance")
+        if drop_check and not moved > 1:
+            raise AssertionError(f"{name} {what}: dropping a key tile stays within the tolerance")
+        errs[what] = err.max().item()
+    return errs
+
+
+def ring_chunk_checks(dev, details):
+    """The flash kernels on ring chunks at CSM-1B heads in bf16, against
+    their plain versions: a zigzag chunk (T=320 over 2 ranks: rank 0 holds
+    positions 0-79 and 240-319, so a 64-key tile jumps) against itself and
+    against rank 1's chunk, with an lse cotangent as the ring's merge gives;
+    a contiguous chunk that sees no key (rank 0's queries 0-127 against rank
+    3's keys 384-511 of T=512): O zero and L = L_EMPTY exactly, and with
+    g_lse = 0 (what the merge passes for it) dq, dk and dv exactly zero."""
+    import torch
+
+    from csm_torch.ops import flash_attention as fa
+    from csm_torch.parallel.ring_attention import zigzag_perm
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    Hq, Hkv, D = 32, 8, 64
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def pos(cols):
+        return torch.as_tensor(cols, dtype=torch.int32, device=dev)[None].contiguous()
+
+    perm = zigzag_perm(320, 2)
+    out = {}
+    for name, qc, kc in (("zigzag_diagonal", perm[:160], perm[:160]),
+                         ("zigzag_off_diagonal", perm[:160], perm[160:])):
+        q, k, v, g = r(1, 160, Hq, D), r(1, 160, Hkv, D), r(1, 160, Hkv, D), r(1, 160, Hq, D)
+        q_pos, kv_pos = pos(qc), pos(kc)
+        o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+        torch.cuda.synchronize()
+        f_err = fwd_check(f"ring chunk {name}", o, lse, q, k, v, q_pos, kv_pos)
+        g_lse = torch.randn(1, Hq, 160, generator=gen, device=dev)
+        seen = torch.isfinite(lse) & (lse < fa.L_EMPTY / 2)
+        g_lse = torch.where(seen, g_lse, torch.zeros_like(g_lse))
+        errs = bwd_check(f"ring chunk {name}", (q, k, v, q_pos, kv_pos, g, lse,
+                                                fa.bwd_delta(o, g, g_lse)))
+        out[name] = dict(fwd=f_err, **errs)
+        log(f"ring chunk {name}: max |kernel - plain| O {f_err:.2e}, dq {errs['dq']:.2e}, "
+            f"dk {errs['dk']:.2e}, dv {errs['dv']:.2e}")
+    q, k, v, g = r(1, 128, Hq, D), r(1, 128, Hkv, D), r(1, 128, Hkv, D), r(1, 128, Hq, D)
+    q_pos, kv_pos = pos(range(0, 128)), pos(range(384, 512))
+    o, lse = fa.flash_attention_fwd(q, k, v, q_pos, kv_pos)
+    args = (q, k, v, q_pos, kv_pos, g, lse, fa.bwd_delta(o, g, None))
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    if not (torch.count_nonzero(o) == 0 and bool((lse == fa.L_EMPTY).all())):
+        raise AssertionError("ring chunk with no visible key: O or L not empty")
+    for what, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if not (torch.isfinite(t.float()).all() and torch.count_nonzero(t) == 0):
+            raise AssertionError(f"ring chunk with no visible key: {what} not exactly zero")
+    out["empty"] = "O = 0, L = L_EMPTY, dq = dk = dv = 0 exactly"
+    log("ring chunk with no visible key: O zero, L = L_EMPTY, dq, dk, dv exactly zero")
+    details["ring_chunks"] = out
+
+
+def mesh_witness_spec(args2, bf16, device="cuda"):
+    """The 2-rank launch: float32 witnesses against rank 0's single-process
+    step, then the bf16 figures at full CSM-1B (remat, float32 master
+    weights, ``MESH_STEPS`` steps, no gather)."""
+    full = mesh_args()
+    b2 = [mesh_batch(args2, 2, MESH_T, s) for s in (1, 2)]
+    f32 = dict(ratio=16, dtype="f32", remat=False, steps=2, lr=MESH_LR)
+    cases = [dict(name=n, parallel=p, **f32) for n, p in (
+        ("dp", {}), ("tp_fsdp", dict(model_parallel=2, fsdp=True)),
+        ("pp", dict(pipeline_parallel=2, pp_microbatches=2)),
+        ("sp_contiguous", dict(seq_parallel=2, ring_layout="contiguous")),
+        ("sp_zigzag", dict(seq_parallel=2, ring_layout="zigzag")))]
+    if bf16:
+        figures = dict(args=full, dtype="bf16", param_dtype="f32", remat=True, steps=MESH_STEPS,
+                       grads=False, params_out=False, compare=False)
+        for name, par, B, T in (("bf16_dp", {}, 4, 512),
+                                ("bf16_tp_fsdp", dict(model_parallel=2, fsdp=True), 2, 512),
+                                ("bf16_pp", dict(pipeline_parallel=2, pp_microbatches=2), 2, 512),
+                                ("bf16_sp_zigzag", dict(seq_parallel=2, ring_layout="zigzag"),
+                                 1, 2048)):
+            cases.append(dict(figures, name=name, parallel=par, batches=[mesh_batch(full, B, T, 3)],
+                              scores=[mesh_scores(B, T, 4)], B=B, T=T))
+    return dict(device=device, args=args2, params={"seed": 0}, batches=b2,
+                scores=[mesh_scores(2, MESH_T, 5)] * 2, host_results=False,
+                reference=dict(name="single", parallel={}, lr=MESH_LR),
+                tolerances=MESH_TOL, cases=cases)
+
+
+def mesh_four_spec(args2, bf16, device="cuda"):
+    """The 4-rank launch: a float32 SP=4 witness at T=512 (128-query
+    chunks), and LoRA r=8 on q/v over a bf16 base at T=2048 with SP=4."""
+    full = mesh_args()
+    cases = [dict(name="sp4_zigzag", parallel=dict(seq_parallel=4, ring_layout="zigzag"),
+                  ratio=16, dtype="f32", remat=False, steps=2, lr=MESH_LR)]
+    if bf16:
+        cases.append(dict(name="bf16_sp4_lora_qv_r8", args=full,
+                          parallel=dict(seq_parallel=4, ring_layout="zigzag"),
+                          lora=dict(r=8, alpha=16.0, target_modules=("q_proj", "v_proj")),
+                          dtype="bf16", remat=True, steps=MESH_STEPS, grads=False,
+                          params_out=False, compare=False,
+                          batches=[mesh_batch(full, 1, 2048, 6)], scores=[mesh_scores(1, 2048, 7)],
+                          B=1, T=2048))
+    return dict(device=device, args=args2, params={"seed": 0},
+                batches=[mesh_batch(args2, 2, MESH_T, s) for s in (1, 2)],
+                scores=[mesh_scores(2, MESH_T, 5)] * 2, host_results=False,
+                reference=dict(name="single", parallel={}, lr=MESH_LR),
+                tolerances=MESH_TOL, cases=cases)
+
+
+def mesh_results(outs, spec, details, total):
+    """Hold a launch's results: every float32 witness within its
+    tolerances, every rank's global losses equal, the bf16 figures' flash
+    launches a step as the layout implies; log and record them."""
+    L = mesh_args().backbone.num_layers
+    world = len(outs)
+    faults = []
+    for case in spec["cases"]:
+        name = case["name"]
+        got = [o[name] for o in outs]
+        losses = {tuple(g["losses"]) for g in got}
+        if len(losses) != 1 or not all(map(math.isfinite, got[0]["losses"])):
+            raise AssertionError(f"mesh {name}: ranks' losses {[g['losses'] for g in got]}")
+        rec = dict(ranks=world, shape=got[0]["shape"], losses=got[0]["losses"],
+                   ms=got[0]["ms"], peak_gib_per_rank=[g["peak_bytes"] / 2**30 for g in got])
+        rec["wall_s"] = got[0]["wall_s"]
+        if "vs_reference" in got[0]:
+            vs = rec["vs_reference"] = got[0]["vs_reference"]
+            if not vs["ok"]:
+                faults.append(f"mesh {name} (float32) against the single-process step: {vs}")
+            log(f"mesh {name} {got[0]['shape']} float32 ({rec['wall_s']:.1f} s): loss within "
+                f"{vs['loss_rel']:.1e} (rel), gradients {vs['grad_share']:.3f} of the tolerance "
+                f"(max abs {vs['grad_max_abs']:.1e}), params after 2 steps "
+                f"{vs['param_share']:.3f} of their bound: within {vs['param_strict_max_abs']:.1e} "
+                f"over the {vs['strict_elements']} held to 2e-5, "
+                f"{vs['param_free_max_abs']:.1e} over the {vs['free_elements']} whose "
+                f"gradients lie within the noise (bound 2·lr or more), of {vs['elements']}")
+        else:
+            par = case["parallel"]
+            kind = ("pp" if par.get("pipeline_parallel", 1) > 1
+                    else "sp" if par.get("seq_parallel", 1) > 1 else "dp")
+            want = expected_mesh_launches(kind, L, n=par.get("seq_parallel", 2))
+            want = {k: v * case["steps"] for k, v in want.items()}
+            for g in got:
+                if g["launches"] != want:
+                    faults.append(f"mesh {name} rank {g['rank']}: launches {g['launches']}, "
+                                  f"the layout needs {want}")
+            for k in total:
+                total[k] += got[0]["launches"][k]
+            ms = got[0]["ms"][-1]
+            frames = case["B"] * (case["T"] // 2)  # the target frames of a global batch
+            rec.update(ms_per_step=ms, trained_frames_per_s=frames / (ms / 1e3),
+                       launches_per_step={k: v // case["steps"] for k, v in want.items()})
+            log(f"mesh {name} {got[0]['shape']} bf16 B={case['B']} T={case['T']} "
+                f"({rec['wall_s']:.1f} s): {ms:.1f} ms/step (steps {got[0]['ms']}), "
+                f"{rec['trained_frames_per_s']:.1f} trained frames/s, peak "
+                f"{max(rec['peak_gib_per_rank']):.2f} GiB a rank, flash launches a step "
+                f"{rec['launches_per_step']}")
+        details["mesh"][name] = rec
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def phase_mesh_training(details, dev, bf16=True):
+    """Phase 10: ring-chunk kernel checks in this process, then 2 and 4
+    ranks as child processes on this card over gloo (after this process has
+    freed its memory).  Returns the flash launches of the bf16 figures."""
+    import gc
+
+    import torch
+
+    from csm_torch.parallel.launch import launch
+
+    ring_chunk_checks(dev, details)
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["mesh"] = {"card": details.get("card"),
+                       "collectives": "gloo through host memory, ranks sharing one card"}
+    args2 = mesh_args(2)
+    total = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    for world, spec in ((2, mesh_witness_spec(args2, bf16)), (4, mesh_four_spec(args2, bf16))):
+        t0 = time.perf_counter()  # the ranks' logs land in chiprun_out/mesh<world>/
+        outs = launch("csm_torch.parallel.witness:run", world, OUT / f"mesh{world}", spec,
+                      timeout_s=MESH_TIMEOUT_S, init_timeout_s=MESH_TIMEOUT_S)
+        details["mesh"][f"launch_{world}_s"] = time.perf_counter() - t0
+        mesh_results(outs, spec, details, total)
+    single = details.get("train_1b", {})
+    if single:
+        log(f"beside them, phase 6 single-process CSM-1B B=2 T=512: "
+            f"{single['ms_per_step_median']:.1f} ms/step, "
+            f"{single['frames_per_s_median']:.1f} trained frames/s, peak "
+            f"{single['peak_memory_gib']:.2f} GiB")
+    return total
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def phase_native_loader(details):
+    """The native audio loader (csm_torch/native), built on this host with
+    g++, against the plain numpy/scipy route on a 10 s and a 60 s 44.1 kHz
+    stereo 16-bit WAV: decode within 2e-3 of it, the 24 kHz resample within
+    40 dB SNR of scipy's on the interior; both routes timed."""
+    import tempfile
+    import wave
+
+    import numpy as np
+
+    from csm_torch import native
+    from csm_torch.data import audio as A
+
+    t0 = time.perf_counter()
+    native.load_library()
+    details["native_build_s"] = time.perf_counter() - t0
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for seconds in (10, 60):
+            sr = 44_100
+            x = speech_band(seconds, sr=sr, seed=seconds)
+            inter = np.stack([x, 0.5 * x], axis=1).reshape(-1)
+            path = str(Path(tmp) / f"s{seconds}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(2)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes(np.clip(inter * 32767, -32768, 32767).astype("<i2").tobytes())
+            t0 = time.perf_counter()
+            got = A.load_audio(path, 24_000)
+            nat_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plain = A.resample_plain(A.load_wav_plain(path)[0], sr, 24_000)
+            plain_s = time.perf_counter() - t0
+            dec, dec_p = A.load_wav(path)[0], A.load_wav_plain(path)[0]
+            dec_err = float(np.abs(dec - dec_p).max())
+            n = min(len(got), len(plain))
+            core = slice(n // 10, -n // 10)
+            err = got[:n][core] - plain[:n][core]
+            snr = 10 * np.log10(np.mean(plain[:n][core] ** 2) / max(np.mean(err**2), 1e-20))
+            if abs(len(got) - len(plain)) > 1 or dec_err > 2e-3 or not snr > 40:
+                raise AssertionError(f"native loader {seconds} s: decode {dec_err:.2e}, "
+                                     f"resample SNR {snr:.1f} dB, lengths {len(got)} {len(plain)}")
+            rows[f"{seconds}s"] = dict(native_s=nat_s, plain_s=plain_s, decode_max_abs=dec_err,
+                                       resample_snr_db=float(snr))
+            log(f"native loader {seconds} s 44.1 kHz stereo -> 24 kHz mono: native "
+                f"{nat_s * 1e3:.1f} ms, plain {plain_s * 1e3:.1f} ms; decode within "
+                f"{dec_err:.1e}, resample {snr:.1f} dB SNR against scipy")
+    details["native_loader"] = rows
+
+
 def main() -> int:
     import torch
 
@@ -4161,6 +4564,8 @@ def main() -> int:
         timed("7b", phase_lora_files, details, dev)
         timed("8", phase_train_reference, details, dev)
         launches["matvec"] = timed("9", phase_matvec_probe, details)
+        mesh = timed("10", phase_mesh_training, details, dev)
+        timed("11", phase_native_loader, details)
         for k in kernels:
             k["launches"] = launches[k["name"]]
             k["serving_launches"] = serving[k["name"]]
@@ -4168,6 +4573,7 @@ def main() -> int:
             k["streaming_launches"] = streaming[k["name"]]
             k["bank_launches"] = bank[k["name"]]
             k["lora_train_launches"] = lora[k["name"]]
+            k["mesh_train_launches"] = mesh.get(k["name"], 0)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

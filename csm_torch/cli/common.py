@@ -46,22 +46,55 @@ def resolve_speaker(args) -> int:
 
 
 def add_parallel_args(parser: argparse.ArgumentParser):
-    """The JAX package's parallelism flags; anything but their defaults
-    waits for the port of parallel training (ROADMAP.md A.11)."""
-    g = parser.add_argument_group("Parallelism (not ported yet: ROADMAP.md A.11)")
-    g.add_argument("--model-parallel", type=int, default=1)
-    g.add_argument("--fsdp", action="store_true")
-    g.add_argument("--pipeline-parallel", type=int, default=1)
-    g.add_argument("--seq-parallel", type=int, default=1)
-    g.add_argument("--ring-layout", choices=("auto", "zigzag", "contiguous"), default="auto")
-    g.add_argument("--pp-microbatches", type=int, default=1)
-    g.add_argument("--distributed", action="store_true")
+    """The JAX package's parallelism flags.  Start the ranks with
+    ``python -m torch.distributed.run --nproc-per-node N -m
+    csm_torch.cli.train ...``; each rank is a process on one device."""
+    g = parser.add_argument_group("Parallelism (one process per rank: torch.distributed.run)")
+    g.add_argument("--model-parallel", type=int, default=1,
+                   help="Tensor-parallel axis size (Megatron-style TP)")
+    g.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3-style weight sharding over the data axis")
+    g.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="Pipeline stages over a pipe axis (exclusive with "
+                        "--model-parallel/--fsdp)")
+    g.add_argument("--seq-parallel", type=int, default=1,
+                   help="Sequence-parallel (ring attention) axis size for long-context "
+                        "training; the sequence length must be a multiple of it")
+    g.add_argument("--ring-layout", choices=("auto", "zigzag", "contiguous"), default="auto",
+                   help="Ring-attention sequence layout: zigzag balances causal work per rank "
+                        "(auto = zigzag when the sequence divides by 2*seq-parallel); "
+                        "identical results either way")
+    g.add_argument("--pp-microbatches", type=int, default=1,
+                   help="Microbatches per step in pipeline mode (bubble fraction = "
+                        "(P-1)/(M+P-1))")
+    g.add_argument("--distributed", action="store_true",
+                   help="Join the process group torch.distributed.run set up; with no layout "
+                        "flag the ranks form the data axis")
     return parser
 
 
 def wants_parallel(args) -> bool:
     return (args.model_parallel > 1 or args.fsdp or args.pipeline_parallel > 1
             or args.seq_parallel > 1 or args.distributed)
+
+
+def parallel_config(args):
+    """The ``ParallelConfig`` of the parallelism flags (None without any):
+    joins the process group on ``args.device``'s backend
+    (``parallel/distributed.initialize``); with
+    ``--distributed`` alone over more than one rank, data parallelism."""
+    if not wants_parallel(args):
+        return None
+    from csm_torch.parallel.distributed import initialize
+    from csm_torch.parallel.mesh import ParallelConfig
+
+    rank, world = initialize(args.device)
+    print(f"process {rank}/{world}")
+    par = ParallelConfig(model_parallel=args.model_parallel, fsdp=args.fsdp,
+                         pipeline_parallel=args.pipeline_parallel,
+                         pp_microbatches=args.pp_microbatches, seq_parallel=args.seq_parallel,
+                         ring_layout=args.ring_layout)
+    return par if par.enabled or world > 1 else None
 
 
 def add_tiny_test_flag(parser: argparse.ArgumentParser):

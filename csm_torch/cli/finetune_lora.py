@@ -8,7 +8,8 @@ modes ``lora`` (an adapter directory), ``full`` (a checkpoint of the merged
 weights) and ``both``, and sample generation.  ``--flavor 8b`` needs a
 quantized base.  ``--device`` picks the card (the default) or the CPU;
 ``--tiny-test`` trains adapters on a tiny random model.  The parallelism
-flags wait for a later slice and raise.
+flags train over a mesh of ranks (data, pipeline or sequence layouts; one
+process a rank, ``python -m torch.distributed.run``).
 
     python -m csm_torch.cli.finetune_lora --audio-dir DATA --model-path ckpt.pt \\
         --lora-r 16 --target-modules q_proj k_proj v_proj o_proj --save-mode both
@@ -23,7 +24,7 @@ import sys
 import torch
 
 from csm_torch.cli.common import (add_device_flag, add_parallel_args, add_tiny_test_flag,
-                                   wants_parallel)
+                                   parallel_config)
 from csm_torch.cli.train import build_tokenizers, prepare_datasets
 
 
@@ -95,12 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
 def make_lora_trainer(args):
     """The ``CSMLoRATrainer`` of a command line (or of a speaker's view of
     one, ``finetune_lora_multi``)."""
-    from csm_torch.generator import _waits
     from csm_torch.training.trainer import CSMLoRATrainer
     from csm_torch.utils.device import resolve_device
 
-    if wants_parallel(args):
-        raise _waits("parallel training", "A.11")
     common = dict(
         output_dir=args.output_dir,
         learning_rate=args.learning_rate,
@@ -117,6 +115,7 @@ def make_lora_trainer(args):
         async_checkpointing=getattr(args, "async_checkpointing", False),
         prefetch_depth=getattr(args, "prefetch", 2),
         device=resolve_device(args.device),
+        parallel=parallel_config(args),
     )
     if args.tiny_test:
         from csm_torch.models.config import tiny_test_args

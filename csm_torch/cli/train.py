@@ -7,10 +7,12 @@ in-step microbatches, freeze flags, Adam moment dtypes, checkpoints written
 in the background, resume.  ``--device`` picks the card
 (the default) or the CPU; ``--tiny-test`` trains a tiny random model with a
 tiny random Mimi; ``--model-path`` and ``--mimi-path`` load CSM and Mimi
-checkpoint files.  Parallel training (the parallelism flags) waits for a
-later slice and raises.
+checkpoint files.  The parallelism flags train over a mesh of ranks, one
+process each:
 
     python -m csm_torch.cli.train --audio-dir DATA --tiny-test --device cpu
+    python -m torch.distributed.run --nproc-per-node 2 -m csm_torch.cli.train \
+        --audio-dir DATA --seq-parallel 2
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from csm_torch.cli.common import (
     add_device_flag,
     add_parallel_args,
     add_tiny_test_flag,
+    parallel_config,
     tiny_mimi,
-    wants_parallel,
 )
 
 
@@ -167,12 +169,10 @@ def build_tokenizers(args, model_args, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from csm_torch.generator import _waits
     from csm_torch.training.trainer import CSMTrainer
     from csm_torch.utils.device import resolve_device
 
-    if wants_parallel(args):
-        raise _waits("parallel training", "A.11")
+    parallel = parallel_config(args)
     device = resolve_device(args.device)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, None: None}
     common = dict(
@@ -188,6 +188,7 @@ def main(argv=None) -> int:
         async_checkpointing=args.async_checkpointing,
         prefetch_depth=args.prefetch,
         device=device,
+        parallel=parallel,
     )
     if args.tiny_test:
         from csm_torch.models.config import tiny_test_args
@@ -199,7 +200,7 @@ def main(argv=None) -> int:
     else:
         trainer = CSMTrainer(model_path=args.model_path, **common)
 
-    text_tok, audio_tok = build_tokenizers(args, trainer.args, device)
+    text_tok, audio_tok = build_tokenizers(args, trainer.args, trainer.device)
     train_ds, val_ds = prepare_datasets(args, trainer.args, audio_tok, text_tok)
     trainer.logger.info(
         f"dataset: {len(train_ds)} train / {len(val_ds) if val_ds else 0} val examples"

@@ -1,8 +1,12 @@
-"""Audio file I/O and resampling (host-side numpy).
+"""Audio file I/O and resampling (host-side).
 
-The JAX package's stdlib-``wave`` + ``scipy.signal.resample_poly`` route.
-Its native C++ loader (``csm_tpu/native``: the same contract in one pass)
-is a host-side speed-up whose port waits (ROADMAP.md A.10b).
+``load_wav``, ``resample`` and ``load_audio`` go through the native C++
+loader (``csm_torch/native``: WAV decode with mono mixdown and a polyphase
+FIR resampler, one pass each), as the JAX package's do; a loader that
+cannot be built raises.  The stdlib-``wave`` + ``scipy.signal.resample_poly``
+route stays beside it as the plain version, ``load_wav_plain`` and
+``resample_plain``: the same contract, which the tests hold the native
+route to.
 """
 
 from __future__ import annotations
@@ -15,12 +19,19 @@ from typing import Tuple
 import numpy as np
 from scipy import signal
 
+from csm_torch import native
+
 
 def load_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Load a WAV file → (mono float32 in [-1, 1], sample_rate).
+    """Load a WAV file → (mono float32 in [-1, 1], sample_rate) through the
+    native decoder: 8/16/24/32-bit PCM and float32; multi-channel is
+    averaged to mono."""
+    with open(path, "rb") as f:
+        return native.wav_decode(f.read())
 
-    Supports 8/16/24/32-bit PCM; multi-channel is averaged to mono.
-    """
+
+def load_wav_plain(path: str) -> Tuple[np.ndarray, int]:
+    """``load_wav`` in numpy (8/16/24/32-bit PCM; no float32 WAVs)."""
     with wave.open(path, "rb") as w:
         sr = w.getframerate()
         n_ch = w.getnchannels()
@@ -70,7 +81,13 @@ def wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resample (matches torchaudio.functional.resample class)."""
+    """Polyphase resample through the native kernel."""
+    return native.resample(audio, sr, target_sr)
+
+
+def resample_plain(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resample with scipy (matches torchaudio.functional.resample
+    class)."""
     if sr == target_sr:
         return np.asarray(audio, np.float32)
     g = math.gcd(sr, target_sr)

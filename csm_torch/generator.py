@@ -6,7 +6,7 @@ checkpoint (a torchtune ``ckpt.pt`` or ``.safetensors``, a training
 checkpoint directory, a Mimi file), the quantized modes and the 8B flavor.
 ``lora_path`` merges a LoRA adapter into the weights at load.  Device
 meshes wait for a later slice and raise ``NotImplementedError`` naming
-their ROADMAP.md item (A.11).  A ``watermarker`` callable is applied to each
+their ROADMAP.md item (A.11b).  A ``watermarker`` callable is applied to each
 waveform when one is given; ``load_csm`` gives none by default, and
 ``csm-torch-generate`` gives one unless told not to.  ``generate_streaming``
 yields audio chunk by chunk through a one-slot ``BatchedServer`` and the
@@ -100,7 +100,7 @@ class Generator:
         kv_dtype=None,
     ):
         if mesh is not None:
-            raise _waits("sharded inference over a device mesh", "A.11")
+            raise _waits("sharded inference over a device mesh", "A.11b")
         # generation runs through generate_audio_tokens_jit: on a card the
         # prefill frame and the frame step as CUDA-graph replays, captured
         # once per key and kept here

@@ -155,6 +155,8 @@ def _layer_forward(
     keep: Optional[dict] = None,
     keep_prob: float = 1.0,
     lora_ids: Optional[torch.Tensor] = None,
+    shard=None,
+    attn_impl=None,
 ) -> torch.Tensor:
     """One transformer block; writes this layer's K/V into ``kv_layer`` in
     place when given.
@@ -162,35 +164,49 @@ def _layer_forward(
     ``lora`` — this layer's adapters {proj: {"a": (in, r), "b": (r, out)}},
     or a bank's {proj: {"a": (A+1, in, R), "b": (A+1, R, out)}} applied by
     the rows' ``lora_ids`` (B,); ``keep`` — {proj: bool mask of x's shape}
-    for adapter-input dropout, kept entries scaled by 1/``keep_prob``."""
+    for adapter-input dropout, kept entries scaled by 1/``keep_prob``.
+
+    ``shard`` — the transformer's part of a mesh (parallel/sharding.TransformerShard):
+    its FSDP weight slices are gathered here (so a recomputed layer gathers
+    again), and under tensor parallelism the layer holds ``1/shard.tp`` of
+    the heads and of the FFN, with Megatron's f before each block and the
+    all-reduce of g after ``wo`` and ``w2`` (a whole adapter cut to match:
+    ``TransformerShard.adapter``).  ``attn_impl(q, k, v)``
+    replaces the attention (the ring of parallel/ring_attention.py)."""
     B, S, E = h.shape
     D = cfg.head_dim
-    qd, kvd = cfg.num_heads * D, cfg.num_kv_heads * D
+    tp = 1
+    if shard is not None:
+        lp, tp = shard.weights(lp), shard.tp
+    Hq, Hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
+    qd, kvd = Hq * D, Hkv * D
+    enter = (lambda x: x) if shard is None else shard.enter  # noqa: E731
+    leave = (lambda y: y) if shard is None else shard.exit  # noqa: E731
 
     def proj(x, name):
         y = _proj(x, lp[name])
         ad = None if lora is None else lora.get(name)
         if ad is None:
             return y
-        xa = x
-        if keep is not None:
-            xa = torch.where(keep[name], x / keep_prob, 0.0).to(x.dtype)
-        a, b = ad["a"], ad["b"]
+        a, b, kp = ad["a"], ad["b"], None if keep is None else keep[name]
+        if shard is not None:
+            a, b, kp = shard.adapter(name, a, b, kp)
+        xa = x if kp is None else torch.where(kp, x / keep_prob, 0.0).to(x.dtype)
         if a.dim() == 3:  # a bank: each row's own adapter, scale folded into b
             a = a.index_select(0, lora_ids).to(x.dtype)  # (B, in, R)
             b = b.index_select(0, lora_ids).to(x.dtype)  # (B, R, out)
             return y + torch.bmm(torch.bmm(xa, a), b) * lora_scale
         return y + ((xa @ a.to(x.dtype)) @ b.to(x.dtype)) * lora_scale
 
-    x = rms_norm(h, lp["sa_norm"], cfg.norm_eps)
+    x = enter(rms_norm(h, lp["sa_norm"], cfg.norm_eps))
     if "wqkv" in lp:
         qkv = proj(x, "wqkv")
         q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
     else:
         q, k, v = proj(x, "wq"), proj(x, "wk"), proj(x, "wv")
-    q = apply_rope(q.reshape(B, S, cfg.num_heads, D), cos, sin)
-    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, D), cos, sin)
-    v = v.reshape(B, S, cfg.num_kv_heads, D)
+    q = apply_rope(q.reshape(B, S, Hq, D), cos, sin)
+    k = apply_rope(k.reshape(B, S, Hkv, D), cos, sin)
+    v = v.reshape(B, S, Hkv, D)
 
     decode = False
     if kv_layer is not None:
@@ -198,23 +214,25 @@ def _layer_forward(
         decode = S == 1 and flash_pos is None
         if not decode:  # the decode kernel reads an int8 cache as it is
             k, v = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
-    if flash_pos is not None:  # q and k leave apply_rope contiguous; v may be a fused slice
+    if attn_impl is not None:
+        attn = attn_impl(q, k, v.contiguous())
+    elif flash_pos is not None:  # q and k leave apply_rope contiguous; v may be a fused slice
         attn = flash_gqa_attention(q, k, v.contiguous(), *flash_pos)
     elif decode:
         attn = decode_gqa_attention(q, k, v, mask)
     else:
         attn = gqa_attention(q, k, v, mask)
 
-    h = h + proj(attn.reshape(B, S, qd), "wo")
+    h = h + leave(proj(attn.reshape(B, S, qd), "wo"))
 
-    x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    x = enter(rms_norm(h, lp["mlp_norm"], cfg.norm_eps))
     if "w13" in lp:
         I = cfg.intermediate_dim
         g13 = proj(x, "w13")
         gate, up = F.silu(g13[..., :I]), g13[..., I:]
     else:
         gate, up = F.silu(proj(x, "w1")), proj(x, "w3")
-    return h + proj(gate * up, "w2")
+    return h + leave(proj(gate * up, "w2"))
 
 
 def transformer_apply(
@@ -232,6 +250,9 @@ def transformer_apply(
     lora_dropout_rate: float = 0.0,
     lora_generator: Optional[torch.Generator] = None,
     lora_ids: Optional[torch.Tensor] = None,
+    shard=None,
+    attn_impl=None,
+    lora_uniform=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the transformer.
 
@@ -260,9 +281,31 @@ def transformer_apply(
         lora_dropout_rate: adapter-input dropout of the uncached (training)
             pass; its masks are drawn from ``lora_generator`` (None: the
             global generator) before each layer runs.
+        shard: a mesh's hook of every layer (parallel/sharding.
+            TransformerShard): FSDP gathers and tensor parallelism; the
+            layer stacks are this rank's slices.
+        attn_impl: ``attn_impl(q, k, v)`` in place of the attention
+            (ring attention over a ``seq`` axis).
+        lora_uniform: ``lora_uniform(layer, shape)`` → the uniforms of a
+            dropout mask, in place of the draw from ``lora_generator``
+            (a mesh draws the whole batch's and keeps its rows).
 
     Returns (normed h (B, S, E), the cache or None).
     """
+    h = transformer_layers(params, cfg, h, positions, mask, cache, cache_offset, flash_pos,
+                           remat, lora, lora_scale, lora_dropout_rate, lora_generator, lora_ids,
+                           shard, attn_impl, lora_uniform)
+    return rms_norm(h, params["norm"], cfg.norm_eps), cache
+
+
+def transformer_layers(params, cfg, h, positions, mask, cache=None, cache_offset=None,
+                       flash_pos=None, remat=False, lora=None, lora_scale=0.0,
+                       lora_dropout_rate=0.0, lora_generator=None, lora_ids=None, shard=None,
+                       attn_impl=None, lora_uniform=None, layer_ids=None) -> torch.Tensor:
+    """``transformer_apply``'s layers without the final norm (a pipeline
+    stage runs its block of layers with this); ``layer_ids`` — the global
+    index of each layer, passed to ``lora_uniform`` (default 0..L-1).
+    Returns h before the norm."""
     if "wqkv" in params and lora is not None and not set(lora) <= {"wqkv", "w13", "wo", "w2"}:
         raise ValueError(
             "fused projections (fuse_projections) require LoRA adapters to be merged first "
@@ -277,20 +320,24 @@ def transformer_apply(
         n: {ab: t.unbind(0) for ab, t in ad.items()} for n, ad in lora.items()}
     dropout = lora is not None and lora_dropout_rate > 0.0 and cache is None
     keep_prob = 1.0 - lora_dropout_rate
-    for layer in range(cfg.num_layers):
+    n_layers = len(stacks["wo"])
+    for layer in range(n_layers):
         lp = {n: stacks[n][layer] for n in names}
         kv_layer = None if cache is None else (layer_half(cache.k, layer), layer_half(cache.v, layer))
         lo = keep = None
         if lora_stacks is not None:
             lo = {n: {ab: v[layer] for ab, v in ad.items()} for n, ad in lora_stacks.items()}
         if dropout:  # drawn here, outside the recomputed layer
-            keep = {n: torch.rand((*h.shape[:-1], ad["a"].shape[-2]), generator=lora_generator,
-                                  device=h.device) < keep_prob
-                    for n, ad in lo.items()}
+            lid = layer if layer_ids is None else layer_ids[layer]
+            keep = {n: (torch.rand(shape, generator=lora_generator, device=h.device)
+                        if lora_uniform is None else lora_uniform(lid, shape)) < keep_prob
+                    for n, ad in lo.items()
+                    for shape in [(*h.shape[:-1], ad["a"].shape[-2])]}
         layer_args = (h, lp, cfg, cos, sin, mask, kv_layer, cache_offset, flash_pos, lo,
-                      lora_scale, keep, keep_prob, lora_ids)
+                      lora_scale, keep, keep_prob, lora_ids,
+                      shard, attn_impl)
         if remat and torch.is_grad_enabled():
             h = checkpoint(_layer_forward, *layer_args, use_reentrant=False)
         else:
             h = _layer_forward(*layer_args)
-    return rms_norm(h, params["norm"], cfg.norm_eps), cache
+    return h

@@ -434,7 +434,7 @@ class BatchedServer:
         device="cuda",
     ):
         if mesh is not None:
-            raise _waits("serving over a device mesh", "A.11")
+            raise _waits("serving over a device mesh", "A.11b")
         self._model_args = args  # what an adapter must have been trained for
         self.window = window
         if window is not None:

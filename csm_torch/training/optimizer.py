@@ -114,6 +114,9 @@ class Optimizer:
         self.accumulation_steps = accumulation_steps
         self.b1, self.b2 = b1, b2
         self.mu_dtype, self.nu_dtype = mu_dtype, nu_dtype
+        # the clip's norm of a call's gradients; over a mesh, the global
+        # norm from this rank's slices (parallel/sharding.sharded_global_norm)
+        self.norm_fn = global_norm
         if params is not None:
             self._bind(params)
 
@@ -165,7 +168,7 @@ class Optimizer:
         leaves = [t for _, t in named_leaves(params)]
         if self.max_grad_norm is not None:
             # optax: g stays below the limit, else g / norm · max_norm
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
             keep = norm < self.max_grad_norm
             div = torch.where(keep, torch.ones_like(norm), norm)
             mul = torch.where(keep, torch.ones_like(norm), torch.full_like(norm, self.max_grad_norm))

@@ -13,8 +13,18 @@ A step's loss and metrics stay on the device and are read one step later,
 while the next step is already queued, so the host never waits for the
 card on every step.  ``model_path`` loads a torchtune ``ckpt.pt`` or
 ``.safetensors`` file, or a checkpoint directory of this trainer (not the
-JAX package's orbax ones).  Device meshes wait for a later slice
-(ROADMAP.md A.11).
+JAX package's orbax ones).
+
+``parallel=ParallelConfig(...)`` trains over a mesh of ranks
+(parallel/mesh.py): each rank is a process (``python -m
+torch.distributed.run``; the trainer joins the group from its
+environment), holds its slices of the parameters and optimizer state in
+the layout's ``layouts`` (parallel/sharding.py, parallel/pipeline.py),
+and runs the same loop over the same global batches.  Checkpoints are the
+single-process ``state.pt`` / ``meta.json`` / ``latest``: every rank
+gathers the whole state and rank 0 writes it; a resume under any layout
+slices it again.  Only rank 0 writes metrics and logs to
+``training.log``.
 """
 
 from __future__ import annotations
@@ -28,7 +38,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from csm_torch.generator import _waits
 from csm_torch.models.config import ModelArgs, csm_1b_args, csm_param_count
 from csm_torch.training import checkpoint as ckpt
 from csm_torch.training import lora as lora_mod
@@ -100,13 +109,21 @@ class CSMTrainer:
         prefetch_depth: int = 2,
         device="cuda",
     ):
-        if parallel is not None:
-            raise _waits("training over a device mesh", "A.11")
         if param_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype}")
+        self.parallel, self.mesh, self.layouts = parallel, None, None
+        if parallel is not None:
+            from csm_torch.parallel.distributed import initialize, rank_device
+
+            device = rank_device(device)  # raises before any group when no card is there
+            initialize(device)
+            self.mesh = parallel.build_mesh()
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.device = resolve_device(device)
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
+        if not self.is_main:  # one log file per rank
+            log_file = os.path.join(output_dir, f"training.rank{self.mesh.rank}.log")
         self.logger = setup_logger(
             self.__class__.__name__, log_file or os.path.join(output_dir, "training.log")
         )
@@ -173,6 +190,7 @@ class CSMTrainer:
         nu_dtype=None,
         grad_microbatches: int = 1,
     ):
+        self._place_params()
         self.tx = make_optimizer(
             self.params,
             learning_rate=self.learning_rate,
@@ -190,13 +208,85 @@ class CSMTrainer:
         self._step_fn = make_train_step(
             self.args, self.tx, semantic_weight=self.semantic_weight,
             acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
-            remat=self.remat, grad_microbatches=grad_microbatches,
+            remat=self.remat, grad_microbatches=grad_microbatches, layouts=self.layouts,
+            **self._mesh_kwargs(),
         )
         self._eval_fn = make_eval_step(
             self.args, semantic_weight=self.semantic_weight,
             acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
+            layouts=self.layouts, **self._mesh_kwargs(),
         )
         return self.tx
+
+    # ---- mesh placement (no-ops without a ParallelConfig) ----
+
+    def _mesh_kwargs(self) -> dict:
+        if self.mesh is None:
+            return {}
+        from csm_torch.parallel.mesh import mesh_kwargs
+
+        return mesh_kwargs(self.parallel, self.mesh)
+
+    def _place_params(self) -> None:
+        """Keep this rank's slices of the whole parameters (once)."""
+        if self.mesh is None or self.layouts is not None:
+            return
+        from csm_torch.parallel.pipeline import check_stages
+        from csm_torch.parallel.sharding import param_layouts, shard_tree
+
+        if self.parallel.pipeline_parallel > 1:
+            check_stages(self.args.backbone, self.mesh)
+        self.layouts = param_layouts(self.params, self.args, self.mesh)
+        self.params = shard_tree(self.params, self.layouts, self.mesh)
+
+    def _state_layouts(self) -> dict:
+        """The layouts of the train state's params (the adapters for LoRA)."""
+        return self.layouts
+
+    def gathered_state_params(self) -> dict:
+        """The trained parameters put back together (collective on a mesh;
+        every rank gets them)."""
+        from csm_torch.parallel.sharding import unshard_tree
+
+        params = self.state.params if self.state is not None else self.params
+        if self.mesh is None:
+            return params
+        return unshard_tree(params, self._state_layouts(), self.mesh)
+
+    def _whole_state(self) -> TrainState:
+        """The train state with whole tensors (collective on a mesh)."""
+        if self.mesh is None:
+            return self.state
+        from csm_torch.parallel.sharding import unshard_tree
+
+        lay = self._state_layouts()
+        flat = dict(self._flat_layouts())
+        opt = dict(self.state.opt_state)
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = {p: unshard_tree({"t": t}, {"t": flat[p]}, self.mesh)["t"]
+                            for p, t in opt[key].items()}
+        return TrainState(unshard_tree(self.state.params, lay, self.mesh), opt, self.state.step)
+
+    def _flat_layouts(self):
+        from csm_torch.parallel.sharding import flat_layouts
+
+        return flat_layouts(self.state.params, self._state_layouts())
+
+    def _shard_state(self, state: TrainState) -> TrainState:
+        """This rank's slices of a whole train state."""
+        if self.mesh is None:
+            return state
+        from csm_torch.parallel.sharding import _slice, shard_tree
+
+        flat = dict(self._flat_layouts())
+        opt = dict(state.opt_state)
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = {p: _slice(t, flat[p], self.mesh).contiguous().clone()
+                            for p, t in opt[key].items()}
+        return TrainState(shard_tree(state.params, self._state_layouts(), self.mesh), opt,
+                          state.step)
 
     def _run_step(self, generator, batch):
         """One optimizer step on ``batch`` (moved to the device); returns the
@@ -248,8 +338,9 @@ class CSMTrainer:
                     f"non-finite loss {last_loss} at step {gs} "
                     f"(state saved; may include one later step)"
                 )
-            self.metrics.log(gs, epoch=ep, loss=m["loss"], semantic_loss=m["semantic_loss"],
-                             acoustic_loss=m["acoustic_loss"], grad_norm=m["grad_norm"])
+            if self.is_main:
+                self.metrics.log(gs, epoch=ep, loss=m["loss"], semantic_loss=m["semantic_loss"],
+                                 acoustic_loss=m["acoustic_loss"], grad_norm=m["grad_norm"])
             if gs % 10 == 0:
                 self.logger.info(
                     f"epoch {ep} step {gs} loss {last_loss:.4f} "
@@ -317,13 +408,16 @@ class CSMTrainer:
         its adapter tree)."""
         kw = dict(epoch=self.epoch, global_step=self.global_step, loss=self.best_val_loss)
         ckpt_dir = os.path.join(self.output_dir, "checkpoints")
+        state = self._whole_state()  # on a mesh: gathered; rank 0 writes
+        if not self.is_main:
+            return os.path.join(os.path.abspath(ckpt_dir), name)
         if self.async_checkpointing:
             if self._ckpt_writer is None:
                 self._ckpt_writer = ckpt.AsyncCheckpointWriter()
-            path = self._ckpt_writer.save(ckpt_dir, name, self.state, self.args, **kw)
+            path = self._ckpt_writer.save(ckpt_dir, name, state, self.args, **kw)
             self.logger.info(f"saving checkpoint {path} (async)")
         else:
-            path = ckpt.save_checkpoint(ckpt_dir, name, self.state, self.args, **kw)
+            path = ckpt.save_checkpoint(ckpt_dir, name, state, self.args, **kw)
             self.logger.info(f"saved checkpoint {path}")
         return path
 
@@ -344,6 +438,10 @@ class CSMTrainer:
 
     def load_checkpoint(self, path: Optional[str] = None):
         self.wait_for_checkpoints()  # never restore under a save in flight
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+
+            dist.barrier()  # rank 0's writes are on disk
         if path is None or path == "latest":
             path = ckpt.latest_checkpoint(os.path.join(self.output_dir, "checkpoints"))
             if path is None:
@@ -352,6 +450,7 @@ class CSMTrainer:
         if self.tx is None or state.opt_state is None:
             raise ValueError("resume needs prepare_optimizer() first and a checkpoint "
                              "with optimizer state")
+        state = self._shard_state(state)
         self.state = state
         self._restored(state)
         self.epoch = meta.get("epoch", 0)
@@ -363,7 +462,7 @@ class CSMTrainer:
         self.params = state.params
 
     def _final_params(self) -> dict:
-        return self.state.params if self.state is not None else self.params
+        return self.gathered_state_params()
 
     # ---- sample generation ----
 
@@ -375,8 +474,11 @@ class CSMTrainer:
         from csm_torch.data.audio import save_wav
         from csm_torch.generator import Generator
 
+        params = self._final_params()  # on a mesh: gathered; rank 0 generates
+        if not self.is_main:
+            return None
         gen = Generator(
-            self._final_params(), self.args, mimi=mimi, text_tokenizer=text_tokenizer,
+            params, self.args, mimi=mimi, text_tokenizer=text_tokenizer,
             compute_dtype=self.compute_dtype, device=self.device,
         )
         audio = gen.generate(text, speaker=speaker_id, max_audio_length_ms=max_audio_length_ms)
@@ -422,6 +524,14 @@ class CSMLoRATrainer(CSMTrainer):
             raise ValueError(f"quant_base must be int8|int4, got {quant_base!r}")
         self.quant_base = quant_base  # before super().__init__: _load_model reads it
         self.int8_base = quant_base == "int8"
+        par = kw.get("parallel")
+        if quant_base is not None and par is not None and (
+                par.model_parallel > 1 or par.fsdp or par.pipeline_parallel > 1):
+            raise ValueError(
+                "a quantized base (int8_base / quant_base) supports single-device, "
+                "data-parallel and sequence-parallel layouts (the point is NOT needing model "
+                "sharding); drop the quantized-base or the model-sharding flags")
+        self.lora_layouts = None
         super().__init__(model_path=model_path, output_dir=output_dir,
                          learning_rate=learning_rate, **kw)
         # an already-quantized base (multi-speaker trainers share one) is kept
@@ -471,23 +581,34 @@ class CSMLoRATrainer(CSMTrainer):
 
     def prepare_optimizer(self, max_grad_norm: float = 1.0, accumulation_steps: int = 1,
                           **_ignored):
+        self._place_params()
+        self._place_adapters()
         self.tx = make_lora_optimizer(learning_rate=self.learning_rate,
                                       max_grad_norm=max_grad_norm,
                                       accumulation_steps=accumulation_steps)
         self.state = init_train_state(self.lora_params, self.tx)
+        mkw = self._mesh_kwargs()
         self._lora_step_fn = make_lora_train_step(
             self.args, self.tx, self.lora_config.scaling, semantic_weight=self.semantic_weight,
             acoustic_weight=self.acoustic_weight, compute_dtype=self.compute_dtype,
             remat=self.remat, lora_dropout=self.lora_config.dropout,
+            base_layouts=self.layouts, layouts=self.lora_layouts, **mkw,
         )
         scaling, base = self.lora_config.scaling, self.params
+        if self.mesh is not None:
+            from csm_torch.training.train_step import _base_view
+
+            base = _base_view(self.params, self.layouts, mkw)
 
         @torch.no_grad()
         def eval_step(lora, generator, batch):
+            if self.mesh is not None:
+                lora = _base_view(lora, self.lora_layouts, mkw)
             _, m = compute_loss(base, self.args, generator, batch,
                                 semantic_weight=self.semantic_weight,
                                 acoustic_weight=self.acoustic_weight,
-                                compute_dtype=self.compute_dtype, lora=lora, lora_scale=scaling)
+                                compute_dtype=self.compute_dtype, lora=lora, lora_scale=scaling,
+                                **mkw)
             return m
 
         self._eval_fn = eval_step
@@ -501,6 +622,23 @@ class CSMLoRATrainer(CSMTrainer):
     def _restored(self, state: TrainState) -> None:
         self.lora_params = state.params
 
+    def _state_layouts(self) -> dict:
+        return self.lora_layouts
+
+    def _place_adapters(self) -> None:
+        """This rank's slices of the adapters: split over ``pipe`` like the
+        layers they ride (parallel/pipeline.lora_pp_layouts), else whole."""
+        if self.mesh is None or self.lora_layouts is not None:
+            return
+        from csm_torch.parallel.pipeline import lora_pp_layouts
+        from csm_torch.parallel.sharding import shard_tree
+
+        if self.parallel.pipeline_parallel > 1:
+            self.lora_layouts = lora_pp_layouts(self.lora_params, self.mesh)
+        else:
+            self.lora_layouts = _whole_layouts(self.lora_params)
+        self.lora_params = shard_tree(self.lora_params, self.lora_layouts, self.mesh)
+
     # ---- artifacts ----
 
     def save_model(self, path: str, save_mode: str = "lora") -> list:
@@ -511,12 +649,21 @@ class CSMLoRATrainer(CSMTrainer):
             raise ValueError(f"save_mode must be lora|full|both, got {save_mode!r}")
         self.wait_for_checkpoints()
         lora = self.state.params if self.state is not None else self.lora_params
+        base = self.params
+        if self.mesh is not None:  # gathered; rank 0 writes
+            from csm_torch.parallel.sharding import unshard_tree
+
+            lora = unshard_tree(lora, self.lora_layouts, self.mesh)
+            if save_mode != "lora":
+                base = unshard_tree(self.params, self.layouts, self.mesh)
+            if not self.is_main:
+                return []
         out = []
         if save_mode in ("lora", "both"):
             p = path + ("_lora" if save_mode == "both" else "")
             out.append(lora_mod.save_lora(p, lora, self.lora_config, self.args))
         if save_mode in ("full", "both"):
-            merged = lora_mod.merge_lora(self.params, lora, self.lora_config)
+            merged = lora_mod.merge_lora(base, lora, self.lora_config)
             p = path + ("_full" if save_mode == "both" else "")
             out.append(ckpt.save_checkpoint(
                 os.path.dirname(p) or ".", os.path.basename(p), TrainState(merged, None, 0),
@@ -527,11 +674,26 @@ class CSMLoRATrainer(CSMTrainer):
     def load_lora_weights(self, path: str):
         lora, lcfg, _ = lora_mod.load_lora(path, self.device)
         self.lora_config = lcfg
+        if self.mesh is not None:
+            from csm_torch.parallel.sharding import shard_tree
+
+            lora = shard_tree(lora, self.lora_layouts, self.mesh)
         self.lora_params = lora
         if self.state is not None:
             self.state = init_train_state(lora, self.tx)
 
     def _final_params(self) -> dict:
-        if self.state is None:
+        if self.state is None and self.mesh is None:
             return self.params
-        return lora_mod.merge_lora(self.params, self.state.params, self.lora_config)
+        lora = self.gathered_state_params()
+        base = self.params
+        if self.mesh is not None:
+            from csm_torch.parallel.sharding import unshard_tree
+
+            base = unshard_tree(self.params, self.layouts, self.mesh)
+        return lora_mod.merge_lora(base, lora, self.lora_config)
+
+
+def _whole_layouts(tree: dict) -> dict:
+    return {k: _whole_layouts(v) if isinstance(v, dict) else (None,) * v.dim()
+            for k, v in tree.items()}

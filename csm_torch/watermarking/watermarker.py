@@ -42,7 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from csm_torch.data.audio import load_wav, resample
+from csm_torch.data import audio as audio_io
 from csm_torch.utils.device import resolve_device
 from csm_torch.watermarking import model as wm
 from csm_torch.watermarking.stft import float32_math, istft, stft
@@ -137,7 +137,7 @@ class Watermarker:
         y = np.asarray(audio, np.float32).reshape(-1)
         orig_len = len(y)
         if sample_rate != self.sample_rate:
-            y = resample(y, sample_rate, self.sample_rate)
+            y = audio_io.resample(y, sample_rate, self.sample_rate)
         if float(np.mean(y ** 2)) == 0.0:
             return np.asarray(audio, np.float32)  # silence: left as it is
 
@@ -150,7 +150,7 @@ class Watermarker:
                            torch.from_numpy(tiled).to(self.device), float(message_sdr))
         out = out.cpu().numpy()
         if sample_rate != self.sample_rate:
-            out = resample(out, self.sample_rate, sample_rate)[:orig_len]
+            out = audio_io.resample(out, self.sample_rate, sample_rate)[:orig_len]
         return out
 
     def _n_frames(self, T: int) -> int:
@@ -185,7 +185,7 @@ class Watermarker:
         ``shift_step``) goes to ``_decode_frames`` as one (S, L) batch."""
         y = np.asarray(audio, np.float32).reshape(-1)
         if sample_rate != self.sample_rate:
-            y = resample(y, sample_rate, self.sample_rate)
+            y = audio_io.resample(y, sample_rate, self.sample_rate)
         power = float(np.mean(y ** 2))
         if power == 0.0:
             return {"messages": [], "confidences": [], "status": False}
@@ -260,7 +260,7 @@ def watermark(watermarker: Watermarker, audio: np.ndarray, sample_rate: int,
     out = watermarker.encode_wav(audio, sample_rate, key, message_sdr)
     out_sr = min(MODEL_SR, sample_rate)
     if out_sr != sample_rate:
-        out = resample(out, sample_rate, out_sr)
+        out = audio_io.resample(out, sample_rate, out_sr)
     return out, out_sr
 
 
@@ -272,7 +272,7 @@ def verify(watermarker: Watermarker, audio: np.ndarray, sample_rate: int,
 
 def check_audio_from_file(path: str, ckpt_dir: Optional[str] = None, device="cuda") -> bool:
     w = load_watermarker(ckpt_dir, device)
-    audio, sr = load_wav(path)
+    audio, sr = audio_io.load_wav(path)
     is_marked = verify(w, audio, sr)
     print(f"{path}: {'watermarked' if is_marked else 'not watermarked'}")
     return is_marked

@@ -41,7 +41,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True)
 def _scipy_resample(monkeypatch):
+    """Both packages on their stdlib-wave + scipy route: the JAX package by
+    its switch, the port by putting its plain versions in place of the
+    native loader."""
+    from csm_torch.data import audio as taudio_io
+
     monkeypatch.setenv("CSM_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(taudio_io, "load_wav", taudio_io.load_wav_plain)
+    monkeypatch.setattr(taudio_io, "resample", taudio_io.resample_plain)
 
 
 def test_generate_parser_defaults():
@@ -485,7 +492,9 @@ def test_finetune_lora_tiny_test(tmp_path):
     """``csm-torch-finetune-lora --tiny-test`` over an int8 base with
     ``--save-mode both`` and ``--async-checkpointing``: an adapter directory
     of the requested targets, a merged checkpoint, and the run's
-    checkpoints committed; the parallelism flags still wait (A.11)."""
+    checkpoints committed; ``--fsdp`` trains a float base on a mesh of
+    one rank (many ranks: tests/test_torch_parallel.py) and refuses a
+    quantized one, as the JAX package does."""
     from csm_torch.cli import finetune_lora as tft
     from csm_torch.training import lora as tlora
 
@@ -501,7 +510,11 @@ def test_finetune_lora_tiny_test(tmp_path):
     meta = json.load(open(out / "adapter_full" / "meta.json"))
     assert meta["global_step"] == 2
     assert json.load(open(out / "checkpoints" / "latest.json")) == {"latest": "final"}
-    with pytest.raises(NotImplementedError, match="A.11"):
+    fsdp = tmp_path / "fsdp"
+    assert tft.main([a for a in argv if a != "--int8-base"] + ["--fsdp", "--output-dir",
+                                                                 str(fsdp)]) == 0
+    assert json.load(open(fsdp / "adapter_full" / "meta.json"))["global_step"] == 2
+    with pytest.raises(ValueError, match="quantized base"):  # the JAX package's refusal
         tft.main(argv + ["--fsdp"])
     a = tft.build_parser().parse_args(["--audio-dir", "d"])
     assert (a.lora_r, a.lora_alpha, a.target_modules, a.save_mode, a.device, a.learning_rate) == (

@@ -72,6 +72,8 @@ def write_pcm(path, x, sr, width, channels):
                                                (1, 2, 8_000), (4, 1, 44_100)])
 def test_audio_io_matches_jax(tmp_path, monkeypatch, width, channels, sr):
     monkeypatch.setenv("CSM_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(taudio, "load_wav", taudio.load_wav_plain)  # the port's plain route
+    monkeypatch.setattr(taudio, "resample", taudio.resample_plain)
     p = str(tmp_path / "a.wav")
     write_pcm(p, sine(0.2, sr, 300.0), sr, width, channels)
     got, want = taudio.load_wav(p), jaudio.load_wav(p)
@@ -87,6 +89,8 @@ def test_processor_segments_match_jax(tmp_path, monkeypatch):
     """Char-proportional segments of a 25 s recording and alignment-driven
     segments, through prepare_from_audio_file."""
     monkeypatch.setenv("CSM_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(taudio, "load_wav", taudio.load_wav_plain)  # the port's plain route
+    monkeypatch.setattr(taudio, "resample", taudio.resample_plain)
     wav, txt, align = (str(tmp_path / n) for n in ("a.wav", "a.txt", "a.json"))
     taudio.save_wav(wav, sine(25.0, hz=220.0), 24_000)
     words = [f"word{i}" for i in range(60)]
@@ -204,7 +208,10 @@ def test_nonfinite_abort_saves_recoverable_state(tmp_path):
 def test_unported_options_raise(tmp_path):
     """Checkpoints written in the background (``async_checkpointing``): a
     run's checkpoints are all committed once ``train`` returns, and resume
-    from them; device meshes still wait (A.11)."""
+    from them.  Device meshes are ported: in a single process a
+    ``ParallelConfig`` gives a mesh of one rank that trains as the trainer
+    without one (multi-rank runs: tests/test_torch_parallel.py); a
+    conflicting layout is refused."""
     out = str(tmp_path / "async")
     tr = make_trainer(out, async_checkpointing=True)
     data = tiny_batches(2)
@@ -217,8 +224,15 @@ def test_unported_options_raise(tmp_path):
     tr2.prepare_optimizer()
     tr2.load_checkpoint("latest")
     assert tr2.global_step == tr.global_step > 0
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_trainer(str(tmp_path), parallel=object())
+    from csm_torch.parallel.mesh import ParallelConfig
+
+    one = make_trainer(str(tmp_path / "mesh1"), parallel=ParallelConfig(fsdp=True))
+    none = make_trainer(str(tmp_path / "nomesh"))
+    assert one.mesh.shape == {"data": 1, "model": 1}
+    np.testing.assert_allclose(one.train(data, batch_size=2, epochs=1),
+                               none.train(data, batch_size=2, epochs=1), rtol=1e-6)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_trainer(str(tmp_path), parallel=ParallelConfig(pipeline_parallel=2, seq_parallel=2))
 
 
 def test_cli_tiny_test_trains_to_the_end(tmp_path):

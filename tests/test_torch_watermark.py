@@ -45,7 +45,14 @@ KEY = tw.CSM_1B_GH_WATERMARK
 
 @pytest.fixture(autouse=True)
 def _scipy_resample(monkeypatch):
+    """Both packages on their stdlib-wave + scipy route: the JAX package by
+    its switch, the port by putting its plain versions in place of the
+    native loader."""
+    from csm_torch.data import audio as taudio_io
+
     monkeypatch.setenv("CSM_TPU_NO_NATIVE", "1")
+    monkeypatch.setattr(taudio_io, "load_wav", taudio_io.load_wav_plain)
+    monkeypatch.setattr(taudio_io, "resample", taudio_io.resample_plain)
 
 
 @pytest.fixture(autouse=True)
